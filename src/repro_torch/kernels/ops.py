@@ -1,0 +1,86 @@
+"""Device dispatch for the kernels: the Hopper kernel for CUDA tensors,
+the plain PyTorch version for CPU tensors.
+
+Port of ``repro.kernels.ops``, where the CPU backend runs the Pallas
+kernels in interpret mode. Here a CPU tensor takes the plain version in
+``kernels.ref`` (there is no interpret mode for a CUDA kernel) and a
+CUDA tensor launches the kernel — or raises: nothing falls back. Any
+other device raises.
+
+Program-once contract: every input-independent transform (Eq. 3's
+divider, the per-tile weight descale, wire attenuation, requantization
+constants) is folded into the operands at *program* time
+(core/crossbar_layer.program_layer / program_digital); these are the
+streaming-evaluate path and take the folded operands as they are.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import crossbar_mvm as _cb
+from repro_torch.kernels import int8_matmul as _i8
+from repro_torch.kernels import ref
+
+COUNTERS = {c.name: c for c in (_cb.launches, _i8.fused_launches,
+                                _i8.raw_launches)}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, by kernel name."""
+    return {name: c.count for name, c in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def _on_cuda(name: str, x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: tensors on {x.device} are not supported "
+                     f"(cuda runs the kernel, cpu the plain version)")
+
+
+def crossbar_mvm(x: torch.Tensor, gp: torch.Tensor, gn: torch.Tensor,
+                 scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 *, activation: str = "linear",
+                 partials: bool = False) -> torch.Tensor:
+    """Tiled differential crossbar MVM with fused epilogue.
+    x (B, R, rows) f32/bf16; gp/gn (R, C, rows, cols); scale (R, C,
+    cols) program-time folded divider + descale; bias (C·cols,) or None
+    → (B, C·cols) = act(Σ_r x·(gp−gn)·scale + b). ``partials`` keeps
+    the row chunks apart: (B, R, C·cols), no bias, linear."""
+    if _on_cuda("crossbar_mvm", x):
+        return _cb.crossbar_mvm(x, gp, gn, scale, bias,
+                                activation=activation, partials=partials)
+    if partials:
+        if bias is not None or activation != "linear":
+            raise ValueError("crossbar_mvm: partials mode has no "
+                             "epilogue")
+        return ref.crossbar_mvm_partials_ref(x, gp, gn, scale)
+    return ref.crossbar_mvm_ref(x, gp, gn, scale, bias,
+                                activation=activation)
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor,
+                scale: Optional[torch.Tensor] = None,
+                offset: Optional[torch.Tensor] = None, *,
+                activation: str = "linear") -> torch.Tensor:
+    """int8 MAC array (the SRAM digital core datapath): (B, K) uint8 or
+    int8 × (K, N) int8 → int32. With ``scale`` (per-neuron requantize)
+    the fused epilogue act(acc·scale + offset) runs in the kernel and
+    the result is f32."""
+    if _on_cuda("int8_matmul", x):
+        return _i8.int8_matmul(x, w, scale, offset, activation=activation)
+    if x.dtype not in (torch.uint8, torch.int8) or w.dtype != torch.int8:
+        raise ValueError(f"int8_matmul: takes uint8/int8 codes and int8 "
+                         f"weights, got {x.dtype} and {w.dtype}")
+    if scale is None:
+        return ref.int8_matmul_ref(x, w)
+    return ref.int8_matmul_fused_ref(x, w, scale, offset,
+                                     activation=activation)

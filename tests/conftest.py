@@ -50,6 +50,9 @@ def pytest_configure(config):
         "markers", "chaos: spawns a multi-process fleet and kills "
         "workers mid-serve; excluded from the default tier-1 run "
         "(enable with --run-chaos / REPRO_RUN_CHAOS=1)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (decided in a "
+        "fixture) where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,193 @@
+"""The port's kernels: plain PyTorch versions against the reference's
+oracles (``repro.kernels.ref``) on the CPU, and the hand-written CUDA
+kernels against their plain versions on the card (``gpu`` marker).
+
+Inputs are drawn with numpy from fixed seeds and handed to both
+packages. The reference's Pallas kernels are not called: on this JAX
+they cannot build their compiler params, so the oracles they are held
+to in ``tests/test_kernels.py`` are the yardstick here too.
+
+Bounds: f32 results rel ≤ 1e-6 (max |diff| / max |ref|) — the two
+frameworks sum in different orders; int32 results exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ref as jref
+
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import crossbar_mvm as cb_wrapper
+from repro_torch.kernels import int8_matmul as i8_wrapper
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(1)
+
+ACTS = ["linear", "threshold", "sigmoid", "relu", "tanh"]
+SWEEP = [(1, 1, 1, 128, 64), (8, 1, 1, 128, 128), (200, 3, 2, 128, 64),
+         (128, 2, 3, 64, 32), (5, 4, 1, 32, 16)]
+
+
+def _rel(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-12))
+
+
+def _cb_operands(seed, B, R, C, rows, cols):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (B, R, rows)).astype(np.float32)
+    gp = rng.uniform(8e-9, 8e-6, (R, C, rows, cols)).astype(np.float32)
+    gn = rng.uniform(8e-9, 8e-6, (R, C, rows, cols)).astype(np.float32)
+    sc = (rng.uniform(0.2, 3.0, (R, C, cols)) /
+          np.sum(gp + gn, axis=2)).astype(np.float32)
+    bias = (rng.standard_normal(C * cols) * 0.1).astype(np.float32)
+    return x, gp, gn, sc, bias
+
+
+def _i8_operands(seed, B, K, N, signed=False):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (B, K), dtype=np.int8) if signed else \
+        rng.integers(0, 256, (B, K), dtype=np.uint8)
+    w = rng.integers(-127, 128, (K, N), dtype=np.int8)
+    scale = rng.uniform(1e-4, 1e-2, N).astype(np.float32)
+    offset = rng.standard_normal(N).astype(np.float32)
+    return x, w, scale, offset
+
+
+def _t(*arrays, device="cpu"):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+# ------------------------- crossbar MVM (K1) -------------------------- #
+@pytest.mark.parametrize("B,R,C,rows,cols", SWEEP)
+def test_crossbar_plain_matches_reference(B, R, C, rows, cols):
+    ops_ = _cb_operands(0, B, R, C, rows, cols)
+    out = ops.crossbar_mvm(*_t(*ops_[:4]))
+    ref = jref.crossbar_mvm_ref(*_j(*ops_[:4]))
+    assert out.shape == (B, C * cols)
+    assert _rel(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("activation", ACTS)
+def test_crossbar_plain_fused_epilogue(activation):
+    ops_ = _cb_operands(7, 48, 2, 2, 64, 32)
+    out = ops.crossbar_mvm(*_t(*ops_), activation=activation)
+    ref = jref.crossbar_mvm_ref(*_j(*ops_), activation=activation)
+    assert _rel(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("B", [1, 37, 200])
+def test_crossbar_plain_ragged_batch(B):
+    ops_ = _cb_operands(8, B, 2, 1, 128, 64)
+    out = ops.crossbar_mvm(*_t(*ops_), activation="sigmoid")
+    ref = jref.crossbar_mvm_ref(*_j(*ops_), activation="sigmoid")
+    assert out.shape == (B, 64)
+    assert _rel(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("B,R,C,rows,cols", SWEEP)
+def test_crossbar_plain_partials_are_per_chunk_calls(B, R, C, rows, cols):
+    """Partials mode == the reference's one oracle call per row chunk
+    (how ``repro.chip`` keeps the partials apart)."""
+    x, gp, gn, sc, _ = _cb_operands(3, B, R, C, rows, cols)
+    out = ops.crossbar_mvm(*_t(x, gp, gn, sc), partials=True)
+    assert out.shape == (B, R, C * cols)
+    for r in range(R):
+        ref = jref.crossbar_mvm_ref(*_j(x[:, r:r + 1], gp[r:r + 1],
+                                        gn[r:r + 1], sc[r:r + 1]))
+        assert _rel(out[:, r], ref) <= 1e-6
+
+
+def test_crossbar_plain_bf16_input():
+    """bf16 x: the plain version upcasts x and keeps the combined tile
+    in f32, as the reference's oracle does, so it holds the f32 bound."""
+    x, gp, gn, sc, bias = _cb_operands(5, 64, 2, 2, 128, 64)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(xb.float().numpy(),
+                                  np.asarray(xj.astype(jnp.float32)))
+    out = ops.crossbar_mvm(xb, *_t(gp, gn, sc, bias))
+    ref = jref.crossbar_mvm_ref(xj, *_j(gp, gn, sc, bias))
+    assert out.dtype == torch.float32
+    assert _rel(out, ref) <= 1e-6
+
+
+# ---------------------- int8 MAC array (K2, K3) ----------------------- #
+@pytest.mark.parametrize("B,K,N", [(1, 256, 128), (37, 300, 130),
+                                   (128, 784, 200), (200, 100, 10)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_int8_plain_raw_is_exact(B, K, N, signed):
+    x, w, _, _ = _i8_operands(1, B, K, N, signed)
+    out = ops.int8_matmul(*_t(x, w))
+    ref = jref.int8_matmul_ref(*_j(x, w))
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("activation", ACTS)
+def test_int8_plain_fused_epilogue(activation):
+    x, w, scale, offset = _i8_operands(2, 96, 784, 200)
+    out = ops.int8_matmul(*_t(x, w, scale, offset), activation=activation)
+    ref = jref.int8_matmul_fused_ref(*_j(x, w, scale, offset),
+                                     activation=activation)
+    assert _rel(out, ref) <= 1e-6
+
+
+def test_int8_plain_refuses_wide_codes():
+    """Codes above 8 bits are not wrapped into uint8 (reference fault
+    R4): the port raises, on the CPU as on the card."""
+    x = torch.full((2, 4), 4095, dtype=torch.int32)
+    w = torch.ones((4, 3), dtype=torch.int8)
+    with pytest.raises(ValueError, match="uint8/int8"):
+        ops.int8_matmul(x, w, torch.ones(3))
+
+
+# ------------------------- dispatch and wrappers ---------------------- #
+def test_dispatch_refuses_other_devices():
+    x = torch.empty((2, 1, 32), device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        ops.crossbar_mvm(x, x, x, x)
+
+
+def test_kernel_wrappers_take_only_cuda_tensors():
+    """The wrappers never run a plain version: a CPU tensor is refused
+    before anything is built or launched, and nothing is counted."""
+    ops.reset_launch_counts()
+    x, gp, gn, sc, bias = _t(*_cb_operands(0, 4, 1, 1, 32, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cb_wrapper.crossbar_mvm(x, gp, gn, sc, bias)
+    xi, w, s, o = _t(*_i8_operands(0, 4, 32, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        i8_wrapper.int8_matmul(xi, w, s, o)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_plain_versions_are_not_counted():
+    ops.reset_launch_counts()
+    ops.crossbar_mvm(*_t(*_cb_operands(0, 4, 1, 1, 32, 16)[:4]))
+    ops.int8_matmul(*_t(*_i8_operands(0, 4, 32, 16)[:2]))
+    assert ops.launch_counts() == {"crossbar_mvm": 0,
+                                   "int8_matmul_fused": 0,
+                                   "int8_matmul_raw": 0}
+
+
+def test_library_name_is_keyed_by_source_and_flags():
+    paths = {name: build.library_path(name) for name in build.KERNELS}
+    assert len(set(paths.values())) == len(build.KERNELS)
+    for name, path in paths.items():
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-")
+    assert build.library_path("crossbar_mvm") == paths["crossbar_mvm"]
+
+
+def test_activation_codes_cover_the_plain_table():
+    assert set(build.ACTIVATION_CODES) == set(tref.ACTIVATIONS)
+    with pytest.raises(ValueError, match="unsupported"):
+        build.activation_code("gelu")
