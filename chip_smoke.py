@@ -332,13 +332,15 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
     for i, layer in enumerate(chips["memristor"].plan):
         p = layer.tiles
         R, C, rows, cols = p.gp.shape
-        xt = torch.nn.functional.pad(h, (0, R * rows - p.d_in)).reshape(
-            -1, R, rows).contiguous()
+        xt = tcl.tile_inputs(p, h)
         w_fold = tcl.folded_weights(p, torch.float32).permute(
             0, 2, 1, 3).reshape(R, rows, C * cols).contiguous()
         xr = xt.transpose(0, 1)
         out = ops.crossbar_mvm(xt, p.gp, p.gn, p.scale, partials=True)
         plain = ref.crossbar_mvm_partials_ref(xt, p.gp, p.gn, p.scale)
+        e = _rel(out, plain)
+        _require(e <= TOL_F32, f"crossbar layer {i} (chip operands): rel "
+                               f"{e:.3g}")
         nbytes = 4 * (xt.numel() + 2 * p.gp.numel() + p.scale.numel() +
                       out.numel())
         flops = 2 * STREAM_B * R * rows * C * cols
@@ -360,11 +362,13 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
     h = x
     for i, layer in enumerate(chips["digital"].plan):
         p = layer.tiles
-        xq = tcl._quantize_inputs(p, h).to(torch.uint8)
+        xq = tcl.quantize_inputs(p, h).to(torch.uint8)
         offset = p.offset + layer.bias
         K, N = p.wq.shape
         out = ops.int8_matmul(xq, p.wq, p.scale, offset)
         plain = ref.int8_matmul_fused_ref(xq, p.wq, p.scale, offset)
+        e = _rel(out, plain)
+        _require(e <= TOL_I8, f"int8 layer {i} (chip operands): rel {e:.3g}")
         nbytes = xq.numel() + p.wq.numel() + 8 * N + 4 * out.numel()
         t_bytes, t_ops = _bound(nbytes, 2 * STREAM_B * K * N, INT8_OPS)
         wf = p.wq.float()
@@ -383,6 +387,8 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
             "library_ms": _time_ms(torch, lib_fused),
             "bytes_ms": t_bytes, "ops_ms": t_ops})
         raw = ops.int8_matmul(xq, p.wq)
+        _require(torch.equal(raw, ref.int8_matmul_ref(xq, p.wq)),
+                 f"int8 raw layer {i} (chip operands) not exact")
         nbytes_raw = xq.numel() + p.wq.numel() + 4 * raw.numel()
         rb, ro = _bound(nbytes_raw, 2 * STREAM_B * K * N, INT8_OPS)
         rows_raw.append({

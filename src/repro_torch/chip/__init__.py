@@ -11,12 +11,11 @@ Self-check:  PYTHONPATH=src python -m repro_torch.chip --selftest
 from repro_torch.chip.compile import (ChipRateWarning, CompiledChip,
                                       StreamLayer, compile_chip,
                                       compile_count, program_plan,
-                                      stream_pipeline,
-                                      validate_stream_rate)
+                                      stream_pipeline)
 from repro_torch.chip.serving import (ChipEngine, ChipRequest,
                                       ChipRequestState)
 
 __all__ = ["ChipRateWarning", "CompiledChip", "StreamLayer",
            "compile_chip", "compile_count", "program_plan",
-           "stream_pipeline", "validate_stream_rate",
+           "stream_pipeline",
            "ChipEngine", "ChipRequest", "ChipRequestState"]

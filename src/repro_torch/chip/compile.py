@@ -43,8 +43,9 @@ from repro_torch.core import quantization as q
 from repro_torch.core import routing as routing_lib
 from repro_torch.core.crossbar_layer import (CrossbarParams, DigitalParams,
                                              MLPSpec, ProgrammedMLP,
-                                             digital_apply, program_layer,
-                                             program_mlp)
+                                             digital_apply, folded_weights,
+                                             program_layer, program_mlp,
+                                             tile_inputs)
 from repro_torch.core.device import DEFAULT_DEVICE, DeviceModel
 from repro_torch.core.mapping import Mapping, Net, map_networks
 from repro_torch.core.neural_core import (DIGITAL_GEOM, MEMRISTOR_GEOM,
@@ -137,19 +138,16 @@ def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
     combiner stage, which is the mapped dataflow. ``use_kernel`` runs
     the crossbar kernel once, in partials mode, for all R chunks; else
     the reference's einsum with ``scale`` folded into the weights."""
-    R, C = p.gp.shape[0], p.gp.shape[1]
-    rows, cols = p.geom_rows, p.geom_cols
+    R = p.gp.shape[0]
     cdtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    xp = torch.nn.functional.pad(x.to(cdtype), (0, R * rows - p.d_in))
-    xt = xp.reshape(-1, R, rows).contiguous()
+    xt = tile_inputs(p, x.to(cdtype))
     if use_kernel:
         from repro_torch.kernels import ops as kops
         parts = kops.crossbar_mvm(xt, p.gp, p.gn, p.scale, partials=True)
     else:
-        w_eff = ((p.gp - p.gn) * p.scale[:, :, None, :]).to(cdtype)
         parts = torch.einsum("brk,rckn->brcn", xt.to(torch.float32),
-                             w_eff.to(torch.float32))
-        parts = parts.reshape(xt.shape[0], R, C * cols)
+                             folded_weights(p, cdtype).to(torch.float32))
+        parts = parts.reshape(xt.shape[0], R, -1)
     return parts[:, :, :p.d_out]
 
 
@@ -214,14 +212,9 @@ class CompiledChip:
     mapping: Mapping
     route: routing_lib.RouteReport
     items_per_second: float             # target rate (0 → best effort)
-    tsv_bits_per_item: Optional[float]
     plan: Optional[Tuple[StreamLayer, ...]]   # None → analytic-only
     device: torch.device
     dims: Optional[Tuple[int, ...]] = None
-    # how the plan was encoded (weight_bits/device_model/r_seg), when
-    # this compile ran the encoder
-    program_kw: Optional[dict] = None
-    rate_validated: bool = False
 
     @property
     def replication(self) -> int:
@@ -298,32 +291,28 @@ class ChipRateWarning(UserWarning):
     TDM link schedule can sustain."""
 
 
-def validate_stream_rate(items_per_second: float, replicas: int,
-                         route: routing_lib.RouteReport, strict: bool, *,
-                         context: str = "compile_chip",
-                         stacklevel: int = 3) -> None:
+def _validate_rate(items_per_second: float, replicas: int,
+                   route: routing_lib.RouteReport) -> None:
     """items_per_second sizes the replica fan-out against COMPUTE
     capacity (§V.C), but each replica's mesh is also a static TDM
-    network whose busiest link forwards LINK_BITS per cycle. Validate
-    the per-replica rate against the routed schedule: warn
-    (:class:`ChipRateWarning`) or, with ``strict``, raise."""
+    network whose busiest link forwards LINK_BITS per cycle. Warn
+    (:class:`ChipRateWarning`) when the per-replica rate exceeds what
+    the routed schedule can carry."""
     if not items_per_second:
         return
     per_replica = items_per_second / replicas
     limit = route.max_items_per_second
     if per_replica <= limit * (1.0 + 1e-9):
         return
-    msg = (f"{context}: items_per_second={items_per_second:g} is "
-           f"infeasible on the routed fabric: each of the "
-           f"{replicas} replica(s) must stream "
-           f"{per_replica:g} items/s, but the busiest mesh link's TDM "
-           f"frame is {route.schedule_cycles} cycles/item, capping a "
-           f"replica at {limit:g} items/s. Use a larger core geometry "
-           f"(fewer row chunks -> less mesh traffic) or lower the "
-           f"target rate.")
-    if strict:
-        raise ValueError(msg)
-    warnings.warn(msg, ChipRateWarning, stacklevel=stacklevel)
+    # stacklevel: here → compile_chip → its caller
+    warnings.warn(
+        f"compile_chip: items_per_second={items_per_second:g} is "
+        f"infeasible on the routed fabric: each of the {replicas} "
+        f"replica(s) must stream {per_replica:g} items/s, but the "
+        f"busiest mesh link's TDM frame is {route.schedule_cycles} "
+        f"cycles/item, capping a replica at {limit:g} items/s. Use a "
+        f"larger core geometry (fewer row chunks -> less mesh traffic) "
+        f"or lower the target rate.", ChipRateWarning, stacklevel=3)
 
 
 def _spec_dims(prog: ProgrammedMLP) -> Tuple[int, ...]:
@@ -354,9 +343,6 @@ def compile_chip(networks: NetworksLike, *,
                  noise_key=None,
                  sensor_flags: Optional[Sequence[bool]] = None,
                  deps: Optional[Sequence[Sequence[int]]] = None,
-                 tsv_bits_per_item: Optional[float] = None,
-                 strict_rate: bool = False,
-                 validate_rate: bool = True,
                  device: DeviceLike = None) -> CompiledChip:
     """Compile networks onto a chip: split → pack → place → route, then
     program every mapped layer's tile state on ``device`` (default
@@ -374,7 +360,7 @@ def compile_chip(networks: NetworksLike, *,
     ``system`` is ``"memristor"`` (1T1M crossbar cores) or
     ``"digital"`` (SRAM cores); ``items_per_second`` sizes the replica
     fan-out (§V.C) and is validated against the routed TDM link
-    capacity (a warning, or ``ValueError`` with ``strict_rate``)."""
+    capacity (a :class:`ChipRateWarning` when it cannot be carried)."""
     if noise is not None or noise_key is not None:
         raise NotImplementedError("variability slice")
     system = normalize_system(system, context="compile_chip")
@@ -385,7 +371,6 @@ def compile_chip(networks: NetworksLike, *,
 
     prog: Optional[ProgrammedMLP] = None
     dims: Optional[Tuple[int, ...]] = None
-    encoded_here = False                # did THIS compile run the encoder?
     if isinstance(networks, ProgrammedMLP):
         prog = networks
         if (prog.mode == "crossbar") != (system == "memristor"):
@@ -412,7 +397,6 @@ def compile_chip(networks: NetworksLike, *,
                                geom=geom or _default_geom(system),
                                device_model=device_model,
                                weight_bits=weight_bits, r_seg=r_seg)
-            encoded_here = True
     else:
         dev = resolve_device(device)
         if params is not None:
@@ -429,21 +413,13 @@ def compile_chip(networks: NetworksLike, *,
                            items_per_second=items_per_second,
                            sensor_flags=sensor_flags, deps=deps)
     route = routing_lib.route(mapping)
-    if validate_rate:
-        # stacklevel: validate_stream_rate → compile_chip → caller
-        validate_stream_rate(items_per_second, mapping.replication, route,
-                             strict_rate, stacklevel=3)
+    _validate_rate(items_per_second, mapping.replication, route)
 
     plan: Optional[Tuple[StreamLayer, ...]] = None
     if prog is not None:
         plan = program_plan(prog, device_model=device_model)
     chip = CompiledChip(system, mapping.geom, mapping, route,
-                        items_per_second, tsv_bits_per_item, plan, dev,
-                        dims,
-                        dict(weight_bits=weight_bits,
-                             device_model=device_model, r_seg=r_seg)
-                        if encoded_here else None,
-                        rate_validated=bool(validate_rate))
+                        items_per_second, plan, dev, dims)
     tel = _obs_current()
     if tel.active:
         dur = time.perf_counter() - t_compile0

@@ -104,8 +104,9 @@ def program_layer(w: torch.Tensor, *, geom: CoreGeometry = MEMRISTOR_GEOM,
                           geom.rows, geom.cols)
 
 
-def _tiled_input(params: CrossbarParams, x: torch.Tensor) -> torch.Tensor:
-    """(B, d_in) → (B, R, rows), zero-padded to the tile grid."""
+def tile_inputs(params: CrossbarParams, x: torch.Tensor) -> torch.Tensor:
+    """(B, d_in) → (B, R, rows), zero-padded to the tile grid: the
+    crossbar kernel's x operand."""
     R, rows = params.gp.shape[0], params.geom_rows
     xp = torch.nn.functional.pad(x, (0, R * rows - params.d_in))
     return xp.reshape(-1, R, rows).contiguous()
@@ -117,14 +118,6 @@ def folded_weights(params: CrossbarParams, dtype: torch.dtype
     (R, C, rows, cols) in ``dtype`` (bf16 for a bf16 stream)."""
     return ((params.gp - params.gn) *
             params.scale[:, :, None, :]).to(dtype)
-
-
-def _einsum_f32(spec: str, x: torch.Tensor, w: torch.Tensor
-                ) -> torch.Tensor:
-    """einsum with f32 results from f32 or bf16 operands (the
-    reference's ``preferred_element_type=f32``): bf16 values and their
-    products are exact in f32."""
-    return torch.einsum(spec, x.to(torch.float32), w.to(torch.float32))
 
 
 def crossbar_apply(params: CrossbarParams, x: torch.Tensor, *,
@@ -139,7 +132,7 @@ def crossbar_apply(params: CrossbarParams, x: torch.Tensor, *,
     C, cols = params.gp.shape[1], params.geom_cols
     lead = x.shape[:-1]
     cdtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    xt = _tiled_input(params, x.reshape(-1, x.shape[-1]).to(cdtype))
+    xt = tile_inputs(params, x.reshape(-1, x.shape[-1]).to(cdtype))
     if use_kernel:
         from repro_torch.kernels import ops as kops
         bfull = None
@@ -151,8 +144,10 @@ def crossbar_apply(params: CrossbarParams, x: torch.Tensor, *,
                                 bfull, activation=activation)
         out = out[:, :params.d_out]
     else:
-        out = _einsum_f32("brk,rckn->bcn", xt,
-                          folded_weights(params, cdtype))
+        # f32 products of (possibly bf16) operands: the reference's
+        # preferred_element_type=f32 (bf16 products are exact in f32)
+        out = torch.einsum("brk,rckn->bcn", xt.to(torch.float32),
+                           folded_weights(params, cdtype).to(torch.float32))
         out = out.reshape(xt.shape[0], C * cols)[:, :params.d_out]
         if bias is not None:
             out = out + bias.to(torch.float32)[None, :]
@@ -199,8 +194,8 @@ def program_digital(w: torch.Tensor, *, bits: int = 8) -> DigitalParams:
                          d_in, d_out)
 
 
-def _quantize_inputs(params: DigitalParams, x: torch.Tensor
-                     ) -> torch.Tensor:
+def quantize_inputs(params: DigitalParams, x: torch.Tensor
+                    ) -> torch.Tensor:
     """Analog inputs → DAC codes 0..2^bits−1 (f32 holding integers)."""
     n = 2.0 ** params.bits - 1.0
     return torch.clamp(torch.round((x - _DIG_LO) / params.step), 0, n)
@@ -219,7 +214,7 @@ def digital_apply(params: DigitalParams, x: torch.Tensor, *,
     (``use_kernel=False``) takes any width."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    xq = _quantize_inputs(params, xf)
+    xq = quantize_inputs(params, xf)
     offset = params.offset
     if bias is not None:
         offset = offset + bias.to(torch.float32).reshape(-1)

@@ -43,8 +43,8 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.neural_core import (CYCLE_S, CROSSBAR_EVAL_CYCLES,
-                                    CoreGeometry, DigitalCore, LINK_BITS,
-                                    MemristorCore)
+                                          CoreGeometry, DigitalCore,
+                                          LINK_BITS, MemristorCore)
 
 Net = Tuple[int, Tuple[int, ...]]  # (instances, layer dims)
 

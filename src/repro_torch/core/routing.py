@@ -37,8 +37,8 @@ import math
 from typing import Dict, List, Sequence, Tuple
 
 from repro_torch.core.mapping import Mapping, MappedCore
-from repro_torch.core.neural_core import (CLOCK_HZ, CYCLE_S, LINK_BITS,
-                                    LINK_PJ_PER_BIT, TSV_PJ_PER_BIT)
+from repro_torch.core.neural_core import (CLOCK_HZ, LINK_BITS,
+                                          LINK_PJ_PER_BIT, TSV_PJ_PER_BIT)
 
 Coord = Tuple[int, int]
 Link = Tuple[Coord, Coord]

@@ -20,7 +20,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -122,21 +122,9 @@ def entry(name: str):
         return fn
 
 
-def check_launch(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error."""
-    if err != 0:
-        raise RuntimeError(f"repro_torch: {name} kernel launch failed "
-                           f"with cudaError_t {err}")
-
-
 def activation_code(activation: str) -> int:
     try:
         return ACTIVATION_CODES[activation]
     except KeyError:
         raise ValueError(f"unsupported fused activation: "
                          f"{activation!r}") from None
-
-
-def sources(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
-    """The ``.cu`` source of each kernel library, by name."""
-    return {name: CSRC / f"{name}.cu" for name in names}

@@ -21,23 +21,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.counters import LaunchCounter
+from repro_torch.kernels.launch import (LaunchCounter, check_launch,
+                                        check_operand, check_same_device)
 
 launches = LaunchCounter("crossbar_mvm")
-
-
-def _check(name: str, t: torch.Tensor, shape, dtypes) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"crossbar_mvm: {name} must be a CUDA tensor, "
-                         f"got {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"crossbar_mvm: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"crossbar_mvm: {name} has dtype {t.dtype}, "
-                         f"expected one of {dtypes}")
-    if not t.is_contiguous():
-        raise ValueError(f"crossbar_mvm: {name} must be contiguous")
 
 
 def crossbar_mvm(x: torch.Tensor, gp: torch.Tensor, gn: torch.Tensor,
@@ -62,16 +49,15 @@ def crossbar_mvm(x: torch.Tensor, gp: torch.Tensor, gn: torch.Tensor,
         raise ValueError(f"crossbar_mvm: x {tuple(x.shape)} does not "
                          f"match the tile grid {tuple(gp.shape)}")
     f32 = (torch.float32,)
-    _check("x", x, (B, R, rows), (torch.float32, torch.bfloat16))
-    _check("gp", gp, (R, C, rows, cols), f32)
-    _check("gn", gn, (R, C, rows, cols), f32)
-    _check("scale", scale, (R, C, cols), f32)
+    name = "crossbar_mvm"
+    check_operand(name, "x", x, (B, R, rows),
+                  (torch.float32, torch.bfloat16))
+    check_operand(name, "gp", gp, (R, C, rows, cols), f32)
+    check_operand(name, "gn", gn, (R, C, rows, cols), f32)
+    check_operand(name, "scale", scale, (R, C, cols), f32)
     if bias is not None:
-        _check("bias", bias, (C * cols,), f32)
-    devices = {t.device for t in (x, gp, gn, scale, bias) if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"crossbar_mvm: operands on several devices "
-                         f"{sorted(map(str, devices))}")
+        check_operand(name, "bias", bias, (C * cols,), f32)
+    check_same_device(name, x, gp, gn, scale, bias)
     shape = (B, R, C * cols) if partials else (B, C * cols)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if B == 0:
@@ -84,6 +70,6 @@ def crossbar_mvm(x: torch.Tensor, gp: torch.Tensor, gn: torch.Tensor,
                  None if bias is None else bias.data_ptr(),
                  out.data_ptr(), B, R, C, rows, cols, act, int(partials),
                  stream)
-    build.check_launch("crossbar_mvm", err)
+    check_launch("crossbar_mvm", err)
     launches.add()
     return out

@@ -19,7 +19,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.counters import LaunchCounter
+from repro_torch.kernels.launch import (LaunchCounter, check_launch,
+                                        check_operand, check_same_device)
 
 fused_launches = LaunchCounter("int8_matmul_fused")
 raw_launches = LaunchCounter("int8_matmul_raw")
@@ -27,21 +28,6 @@ raw_launches = LaunchCounter("int8_matmul_raw")
 # the largest K whose int32 accumulator cannot overflow with 8-bit codes
 # (|x| ≤ 255, |w| ≤ 128)
 MAX_K = (2 ** 31 - 1) // (255 * 128)
-
-
-def _check(name: str, t: torch.Tensor, shape, dtypes) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"int8_matmul: {name} must be a CUDA tensor, "
-                         f"got {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"int8_matmul: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"int8_matmul: {name} has dtype {t.dtype}, "
-                         f"expected one of {dtypes} (codes wider than "
-                         f"8 bits are not taken)")
-    if not t.is_contiguous():
-        raise ValueError(f"int8_matmul: {name} must be contiguous")
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -62,20 +48,18 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     if K > MAX_K:
         raise ValueError(f"int8_matmul: K={K} can overflow the int32 "
                          f"accumulator (at most {MAX_K})")
-    _check("x", x, (B, K), (torch.uint8, torch.int8))
-    _check("w", w, (K, N), (torch.int8,))
+    name = "int8_matmul"
+    check_operand(name, "x", x, (B, K), (torch.uint8, torch.int8))
+    check_operand(name, "w", w, (K, N), (torch.int8,))
     fused = scale is not None
     if fused:
-        _check("scale", scale, (N,), (torch.float32,))
+        check_operand(name, "scale", scale, (N,), (torch.float32,))
         if offset is not None:
-            _check("offset", offset, (N,), (torch.float32,))
+            check_operand(name, "offset", offset, (N,), (torch.float32,))
     elif offset is not None or activation != "linear":
         raise ValueError("int8_matmul: offset/activation need scale (the "
                          "raw accumulator has no epilogue)")
-    devices = {t.device for t in (x, w, scale, offset) if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"int8_matmul: operands on several devices "
-                         f"{sorted(map(str, devices))}")
+    check_same_device(name, x, w, scale, offset)
     out = torch.empty((B, N), dtype=torch.float32 if fused else torch.int32,
                       device=x.device)
     if B == 0 or N == 0:
@@ -87,6 +71,6 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
                  scale.data_ptr() if fused else None,
                  None if offset is None else offset.data_ptr(),
                  out.data_ptr(), B, K, N, act, int(fused), stream)
-    build.check_launch("int8_matmul", err)
+    check_launch("int8_matmul", err)
     (fused_launches if fused else raw_launches).add()
     return out

@@ -181,9 +181,7 @@ def test_paper_app_mapping_and_route_equal_reference(app_id, system):
     tc = compile_chip(nets, system=system,
                       items_per_second=app.items_per_second,
                       sensor_flags=app.sensor_flags(system),
-                      deps=app.net_deps(system),
-                      tsv_bits_per_item=app.tsv_bits_per_item,
-                      device="cpu")
+                      deps=app.net_deps(system), device="cpu")
     assert tc.plan is None
     assert _asdict(tc.mapping) == _asdict(jc.mapping)
     assert _asdict(tc.route) == _asdict(jc.route)
@@ -290,11 +288,12 @@ def test_programmed_mlp_compiles_without_re_encoding():
     chip = compile_chip(prog, system="memristor")
     assert chip.device == torch.device("cpu")
     assert chip.plan[0].tiles is prog.layers[0]
-    assert chip.program_kw is None
     with pytest.raises(ValueError, match="does not match system"):
         compile_chip(prog, system="digital")
     x = torch.rand((4, 784), generator=torch.Generator().manual_seed(0))
+    compiles = tcompile.compile_count()
     assert torch.equal(chip.stream(x), tc.stream(x))
+    assert tcompile.compile_count() == compiles    # streams never compile
 
 
 def test_dense_kernel_path_matches_mapped_stream():
@@ -318,6 +317,21 @@ def test_analytic_chip_and_unported_verbs_raise():
         chip.report()
     with pytest.raises(NotImplementedError, match="variability slice"):
         compile_chip(tcl.MLPSpec((8, 4)), noise=object(), device="cpu")
+
+
+def test_infeasible_rate_warns_like_the_reference():
+    """A rate the routed TDM schedule cannot carry per replica warns
+    with the same capacity figure the reference reports."""
+    nets = ((1, (784, 200, 100, 10)),)
+    probe = compile_chip(nets, device="cpu")
+    rate = 10 * probe.replication * probe.route.max_items_per_second
+    # the replica fan-out follows compute capacity; the link does not
+    with pytest.warns(tcompile.ChipRateWarning, match="infeasible"):
+        tc = compile_chip(nets, items_per_second=rate, device="cpu")
+    with pytest.warns(jchip.ChipRateWarning, match="infeasible"):
+        jc = jchip.compile_chip(nets, items_per_second=rate)
+    assert tc.replication == jc.replication
+    assert tc.route.max_items_per_second == jc.route.max_items_per_second
 
 
 def test_compile_needs_a_card_unless_asked_for_cpu(monkeypatch):
