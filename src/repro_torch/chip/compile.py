@@ -189,12 +189,12 @@ def stream_pipeline(plan: Tuple[StreamLayer, ...], x: torch.Tensor,
     B = x.shape[0]
     if replication <= 1 or B < replication:
         return replica(x)
+    # (replication, per) shards, padded as the reference's vmap needs
+    # them, laid out row-major: the flat batch is the replica axis
+    # folded into the batch axis
     per = math.ceil(B / replication)
     xp = torch.nn.functional.pad(x, (0, 0, 0, replication * per - B))
-    shards = xp.reshape(replication, per, -1)
-    out = replica(shards.reshape(replication * per, -1))
-    return out.reshape(replication, per, -1).reshape(
-        replication * per, -1)[:B]
+    return replica(xp)[:B]
 
 
 # --------------------------------------------------------------------- #
