@@ -22,8 +22,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      equal the direct stream;
   4. times: CUDA events over many launches after warm-up, for each
      kernel, its plain version and one PyTorch call computing the same
-     function, beside the least time the card could take (the bound),
-     plus stream items/s and engine steps/s.
+     function, beside the least time the card could take (the bound);
+     stream items/s of the kernel and einsum paths in alternating
+     rounds, with the device's busy time from ``torch.profiler``; and
+     engine steps/s.
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -58,6 +60,7 @@ INT8_OPS = 1979e12
 
 DEEP = (784, 200, 100, 10)
 STREAM_B = 16384
+STREAM_ROUNDS = 5      # × (einsum, kernel, kernel, einsum) stream timings
 
 
 class SmokeFailure(Exception):
@@ -298,6 +301,40 @@ def _time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _quartiles(values):
+    v = sorted(values)
+    n = len(v)
+    return v[n // 2], v[n // 4], v[(3 * n) // 4]
+
+
+def _device_busy(torch, chip, x, use_kernel: bool, wall_ms: float) -> dict:
+    """Device time of one streamed batch, summed over the CUDA kernels
+    a profiler sees in 5 batches, beside the batch's wall time (CUDA
+    events, without the profiler): the device's idle share, and the
+    kernels that take the time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            chip.stream(x, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels) / n
+    if busy_us <= 0:
+        return {"device_busy_ms": "not measured",
+                "device_idle_share": "not measured"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"device_busy_ms": busy_us / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
+            "kernels_per_batch": sum(e.count for e in kernels) / n,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / n / 1e3
+                               for e in top}}
+
+
 def _bound(nbytes: float, ops_: float, rate: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ / rate * 1e3
@@ -421,14 +458,24 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
     for k in kernels + off_path:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
 
-    # end to end: stream items/s at B = 16,384 and engine steps/s
+    # end to end: stream items/s at B = 16,384, in alternating rounds
+    # (einsum, kernel, kernel, einsum) so the two paths share the card's
+    # state; then where the time goes (profiler); then engine steps/s
     for system, chip in chips.items():
-        for use_kernel in (True, False):
-            ms = _time_ms(torch, lambda: chip.stream(
-                x, use_kernel=use_kernel), iters=10)
+        times = {True: [], False: []}
+        for _ in range(STREAM_ROUNDS):
+            for use_kernel in (False, True, True, False):
+                times[use_kernel].append(_time_ms(
+                    torch, lambda: chip.stream(x, use_kernel=use_kernel),
+                    iters=10))
+        for use_kernel, ms in times.items():
+            med, q1, q3 = _quartiles(ms)
             _line({"metric": "stream_items_per_s", "system": system,
                    "use_kernel": use_kernel, "batch": STREAM_B,
-                   "ms_per_batch": ms, "items_per_s": STREAM_B / ms * 1e3,
+                   "ms_per_batch_median": med, "ms_per_batch_q1": q1,
+                   "ms_per_batch_q3": q3, "runs": len(ms),
+                   "items_per_s": STREAM_B / med * 1e3,
+                   **_device_busy(torch, chip, x, use_kernel, med),
                    "card": name})
         eng = chip.serve(slots=4)
         gen = torch.Generator().manual_seed(4)
