@@ -26,6 +26,8 @@ from repro_torch.core import quantization as tq
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
+torch.set_num_threads(1)
+
 SWEEP = [(1, 1, 1, 128, 64), (8, 1, 1, 128, 128), (200, 3, 2, 128, 64),
          (128, 2, 3, 64, 32), (5, 4, 1, 32, 16)]
 DEEP = (784, 200, 100, 10)
