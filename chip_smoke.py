@@ -12,9 +12,10 @@ The memristor system streams through the crossbar kernel
 kernel (``csrc/int8_matmul.cu``); both are built here from source.
 
 Phases, each of which ends the run with a non-zero exit on failure:
-  1. kernel vs plain version on the card, at the deep app's shapes and
-     on the test sweep (crossbar: both modes, f32 and bf16, ragged
-     batches; int8: fused and raw);
+  1. kernel vs plain version on the card, at the deep app's shapes, on
+     the test sweep and at the serving batches 1 and 4 (crossbar: both
+     modes, f32 and bf16, ragged batches, 16-column tiles; int8: fused
+     and raw, signed and unsigned codes, unaligned rows);
   2. stream: 16,384 items through each system's chip, with the kernel
      launch counters showing three launches a call, checked layer by
      layer against the einsum (plain) path on the card;
@@ -22,7 +23,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      equal the direct stream;
   4. times: CUDA events over many launches after warm-up, for each
      kernel, its plain version and one PyTorch call computing the same
-     function, beside the least time the card could take (the bound);
+     function, queued behind a sleep so that they time the card's work
+     (and, beside them, at the host's launch pace), with the least time
+     the card could take on the kernel's route (the bound);
      stream items/s of the kernel and einsum paths in alternating
      rounds, with the device's busy time from ``torch.profiler``; and
      engine steps/s.
@@ -56,11 +59,14 @@ BAND = 1e-5        # threshold units may flip only within this × max|pre|
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # IEEE f32 on the CUDA cores (no TF32)
+TF32_FLOPS = 494.7e12      # TF32 tensor cores
 INT8_OPS = 1979e12
+TF32_PRODUCTS = 3          # the crossbar kernel's f32 route: 3×TF32
 
 DEEP = (784, 200, 100, 10)
 STREAM_B = 16384
 STREAM_ROUNDS = 5      # × (einsum, kernel, kernel, einsum) stream timings
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock: covers 20 launches
 
 
 class SmokeFailure(Exception):
@@ -101,9 +107,12 @@ def phase_kernels(torch, ops, ref, dev) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     deep = [(STREAM_B, 7, 4, 128, 64), (STREAM_B, 2, 2, 128, 64),
             (STREAM_B, 1, 1, 128, 64)]
+    # the test sweep, the serving batches (1, 4) at the deep app's first
+    # layer, and 16-column tiles several of which share a block tile
     sweep = [(1, 1, 1, 128, 64), (8, 1, 1, 128, 128), (200, 3, 2, 128, 64),
              (128, 2, 3, 64, 32), (5, 4, 1, 32, 16), (STREAM_B - 1, 7, 4,
-                                                       128, 64)]
+                                                       128, 64),
+             (1, 7, 4, 128, 64), (4, 7, 4, 128, 64), (37, 2, 5, 32, 16)]
     checks = 0
     worst = {"crossbar_f32": 0.0, "crossbar_bf16": 0.0, "int8_fused": 0.0}
     for shape in deep + sweep:
@@ -140,7 +149,7 @@ def phase_kernels(torch, ops, ref, dev) -> int:
             worst["crossbar_bf16"] = max(worst["crossbar_bf16"], e)
             _require(e <= TOL_BF16, f"crossbar bf16 {shape}: rel {e:.3g}")
         checks += 3
-    for B in (STREAM_B, 37):
+    for B in (STREAM_B, 37, 4, 1):
         for K, N in ((784, 200), (200, 100), (100, 10)):
             w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
                               dtype=torch.int8)
@@ -288,6 +297,8 @@ def phase_main_path(torch, ops, tcompile, tq, tcl, chip_mod, dev, name):
 # phase 4: times
 # --------------------------------------------------------------------- #
 def _time_ms(torch, fn, iters=20, warmup=3) -> float:
+    """Mean ms a call, CUDA events around ``iters`` calls after
+    ``warmup``, at the pace the host launches them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -299,6 +310,32 @@ def _time_ms(torch, fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, iters=20, warmup=3) -> float:
+    """Mean ms a call of the card's own work: the calls are queued behind
+    a sleep on the stream, so the events see them back to back whatever
+    the host's launch overhead. The sleep must outlast the queueing; if
+    it ran out first, the measurement is taken again with a longer one."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        starved = start.query()
+        torch.cuda.synchronize()
+        if not starved:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise SmokeFailure("device timing: the host could not queue the calls "
+                       "within the sleep")
 
 
 def _quartiles(values):
@@ -341,20 +378,38 @@ def _bound(nbytes: float, ops_: float, rate: float):
     return t_bytes, t_ops
 
 
+def _times(torch, kernel, plain, library) -> dict:
+    """A kernel row's times: the card's own time of the kernel, its plain
+    version and the library call (``_device_ms``), and the kernel's and
+    the library call's time at the host's launch pace (``_time_ms``),
+    which adds the Python wrapper's overhead where it is the longer."""
+    return {"ms": _device_ms(torch, kernel),
+            "plain_ms": _device_ms(torch, plain),
+            "library_ms": _device_ms(torch, library),
+            "host_paced_ms": _time_ms(torch, kernel),
+            "library_host_paced_ms": _time_ms(torch, library)}
+
+
 def _kernel_row(name, source, replaces, launches, layers):
     """Sum per-layer numbers into one row: the times of one streamed
     batch (one launch per layer)."""
     t_bytes = sum(r["bytes_ms"] for r in layers)
     t_ops = sum(r["ops_ms"] for r in layers)
-    lib = [r["library_ms"] for r in layers]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in layers),
-            "ms": sum(r["ms"] for r in layers),
-            "plain_ms": sum(r["plain_ms"] for r in layers),
-            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in layers),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None if None in lib else sum(lib)}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max(r["max_abs_err"] for r in layers),
+           "ms": sum(r["ms"] for r in layers),
+           "plain_ms": sum(r["plain_ms"] for r in layers),
+           "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in layers),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": sum(r["library_ms"] for r in layers),
+           "host_paced_ms": sum(r["host_paced_ms"] for r in layers),
+           "library_host_paced_ms": sum(r["library_host_paced_ms"]
+                                        for r in layers)}
+    if "ops_ms_f32_cuda_cores" in layers[0]:
+        row["bound_ms_f32_cuda_cores"] = sum(
+            max(r["bytes_ms"], r["ops_ms_f32_cuda_cores"]) for r in layers)
+    return row
 
 
 def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
@@ -381,18 +436,22 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
         nbytes = 4 * (xt.numel() + 2 * p.gp.numel() + p.scale.numel() +
                       out.numel())
         flops = 2 * STREAM_B * R * rows * C * cols
-        t_bytes, t_ops = _bound(nbytes, flops, F32_FLOPS)
-        row = {
+        # the route the kernel takes (3×TF32 on the tensor cores), and
+        # the IEEE f32 CUDA-core bound the first kernel was held to
+        t_bytes, t_ops = _bound(nbytes, TF32_PRODUCTS * flops, TF32_FLOPS)
+        t_ops_f32 = _bound(nbytes, flops, F32_FLOPS)[1]
+        rows_cb.append({
             "kernel": "crossbar_mvm", "layer": i,
             "shape": [STREAM_B, R, C, rows, cols], "mode": "partials",
             "max_abs_err": float((out - plain).abs().max()),
-            "ms": _time_ms(torch, lambda: ops.crossbar_mvm(
-                xt, p.gp, p.gn, p.scale, partials=True)),
-            "plain_ms": _time_ms(torch, lambda: ref.crossbar_mvm_partials_ref(
-                xt, p.gp, p.gn, p.scale)),
-            "library_ms": _time_ms(torch, lambda: torch.matmul(xr, w_fold)),
-            "bytes_ms": t_bytes, "ops_ms": t_ops}
-        rows_cb.append(row)
+            **_times(torch,
+                     lambda: ops.crossbar_mvm(xt, p.gp, p.gn, p.scale,
+                                              partials=True),
+                     lambda: ref.crossbar_mvm_partials_ref(
+                         xt, p.gp, p.gn, p.scale),
+                     lambda: torch.matmul(xr, w_fold)),
+            "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "ops_ms_f32_cuda_cores": t_ops_f32})
         h = tcompile._apply_stream_layer(layer, h, False)
 
     # int8 kernel, fused, on the digital chip's own synapses and codes
@@ -417,11 +476,11 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
             "kernel": "int8_matmul_fused", "layer": i,
             "shape": [STREAM_B, K, N],
             "max_abs_err": float((out - plain).abs().max()),
-            "ms": _time_ms(torch, lambda: ops.int8_matmul(
-                xq, p.wq, p.scale, offset)),
-            "plain_ms": _time_ms(torch, lambda: ref.int8_matmul_fused_ref(
-                xq, p.wq, p.scale, offset)),
-            "library_ms": _time_ms(torch, lib_fused),
+            **_times(torch,
+                     lambda: ops.int8_matmul(xq, p.wq, p.scale, offset),
+                     lambda: ref.int8_matmul_fused_ref(xq, p.wq, p.scale,
+                                                       offset),
+                     lib_fused),
             "bytes_ms": t_bytes, "ops_ms": t_ops})
         raw = ops.int8_matmul(xq, p.wq)
         _require(torch.equal(raw, ref.int8_matmul_ref(xq, p.wq)),
@@ -433,10 +492,9 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
             "shape": [STREAM_B, K, N],
             "max_abs_err": float((raw - ref.int8_matmul_ref(xq, p.wq))
                                  .abs().max()),
-            "ms": _time_ms(torch, lambda: ops.int8_matmul(xq, p.wq)),
-            "plain_ms": _time_ms(torch, lambda: ref.int8_matmul_ref(
-                xq, p.wq)),
-            "library_ms": _time_ms(torch, lambda: xq.float() @ wf),
+            **_times(torch, lambda: ops.int8_matmul(xq, p.wq),
+                     lambda: ref.int8_matmul_ref(xq, p.wq),
+                     lambda: xq.float() @ wf),
             "bytes_ms": rb, "ops_ms": ro})
         h = tcompile._apply_stream_layer(layer, h, False)
     for r in rows_cb + rows_i8 + rows_raw:

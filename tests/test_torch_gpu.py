@@ -51,9 +51,10 @@ def _cb_operands(seed, B, R, C, rows, cols):
     return x, gp, gn, sc, bias
 
 
-def _i8_operands(seed, B, K, N):
+def _i8_operands(seed, B, K, N, signed=False):
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, 256, (B, K), dtype=np.uint8)
+    x = rng.integers(-128, 128, (B, K), dtype=np.int8) if signed else \
+        rng.integers(0, 256, (B, K), dtype=np.uint8)
     w = rng.integers(-127, 128, (K, N), dtype=np.int8)
     scale = rng.uniform(1e-4, 1e-2, N).astype(np.float32)
     offset = rng.standard_normal(N).astype(np.float32)
@@ -115,6 +116,75 @@ def test_gpu_int8_kernels_match_plain(cuda, B, K, N):
     out = ops.int8_matmul(x, w, scale, offset, activation="sigmoid")
     plain = tref.int8_matmul_fused_ref(x, w, scale, offset,
                                        activation="sigmoid")
+    assert _rel(out.cpu(), plain.cpu()) <= 1e-6
+
+
+# edge shapes of the tensor-core kernels: serving batches (1, 4) and a
+# ragged one (37), 32-row crossbars, and 16-column tiles several of
+# which share one 64-column block tile
+EDGE_CB = [(1, 1, 1, 128, 64), (4, 2, 2, 128, 64), (37, 2, 5, 32, 16),
+           (4, 3, 2, 32, 16), (37, 7, 4, 128, 64)]
+ACTS = ["linear", "threshold", "sigmoid", "relu", "tanh"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", EDGE_CB)
+@pytest.mark.parametrize("activation", ACTS)
+def test_gpu_crossbar_kernel_reduce_edges(cuda, shape, activation):
+    """Reduce mode with every fused activation; threshold units may take
+    the other rail only in the near-zero band."""
+    x, gp, gn, sc, bias = _t(*_cb_operands(14, *shape), device=cuda)
+    out = ops.crossbar_mvm(x, gp, gn, sc, bias, activation=activation)
+    plain = tref.crossbar_mvm_ref(x, gp, gn, sc, bias, activation=activation)
+    if activation == "threshold":
+        pre = tref.crossbar_mvm_ref(x, gp, gn, sc, bias)
+        near = pre.abs() <= BAND * pre.abs().max()
+        assert not bool(((out != plain) & ~near).any())
+    else:
+        assert _rel(out.cpu(), plain.cpu()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", EDGE_CB)
+def test_gpu_crossbar_kernel_partials_edges(cuda, shape):
+    x, gp, gn, sc, _ = _t(*_cb_operands(15, *shape), device=cuda)
+    out = ops.crossbar_mvm(x, gp, gn, sc, partials=True)
+    plain = tref.crossbar_mvm_partials_ref(x, gp, gn, sc)
+    assert _rel(out.cpu(), plain.cpu()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", EDGE_CB + DEEP_CB)
+@pytest.mark.parametrize("partials", [False, True])
+def test_gpu_crossbar_kernel_bf16_edges(cuda, shape, partials):
+    """bf16 x in both modes: the kernel rounds the combined tile to bf16,
+    the plain version keeps it f32 (rel ≤ 1e-2)."""
+    x, gp, gn, sc, bias = _t(*_cb_operands(16, *shape), device=cuda)
+    xb = x.to(torch.bfloat16)
+    if partials:
+        out = ops.crossbar_mvm(xb, gp, gn, sc, partials=True)
+        plain = tref.crossbar_mvm_partials_ref(xb, gp, gn, sc)
+    else:
+        out = ops.crossbar_mvm(xb, gp, gn, sc, bias, activation="sigmoid")
+        plain = tref.crossbar_mvm_ref(xb, gp, gn, sc, bias,
+                                      activation="sigmoid")
+    assert _rel(out.cpu(), plain.cpu()) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4, 37])
+@pytest.mark.parametrize("K,N", [(784, 200), (200, 100), (100, 10),
+                                 (37, 5)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_gpu_int8_kernels_edges(cuda, B, K, N, signed):
+    """Rows of 200, 100 and 37 bytes are not 16-byte aligned (narrower
+    copies), and 784 = 12.25 steps of 64 leaves a ragged last step."""
+    x, w, scale, offset = _t(*_i8_operands(17, B, K, N, signed),
+                             device=cuda)
+    assert torch.equal(ops.int8_matmul(x, w), tref.int8_matmul_ref(x, w))
+    out = ops.int8_matmul(x, w, scale, offset, activation="tanh")
+    plain = tref.int8_matmul_fused_ref(x, w, scale, offset,
+                                       activation="tanh")
     assert _rel(out.cpu(), plain.cpu()) <= 1e-6
 
 

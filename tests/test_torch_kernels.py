@@ -119,6 +119,74 @@ def test_crossbar_plain_bf16_input():
     assert _rel(out, ref) <= 1e-6
 
 
+# The card's crossbar kernel multiplies f32 operands as 3×TF32: each
+# operand v splits into big = tf32(v) and small = tf32(v − big) (round to
+# nearest, ties away from zero, to a 10-bit mantissa), and the product
+# is a_small·b_big + a_big·b_small + a_big·b_big. These emulate that
+# arithmetic in plain PyTorch (products and sums in float64, so only the
+# split's error is measured) and hold it to the kernel's unchanged bound
+# against the IEEE f32 plain version: rel ≤ 1e-5.
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(v: torch.Tensor):
+    big = _tf32_rna(v)
+    return big, _tf32_rna(v - big)
+
+
+def _partials_3xtf32(x, gp, gn, scale):
+    xb, xs = _tf32_split(x)
+    wb, ws = _tf32_split(gp - gn)
+    num = sum(torch.einsum("brk,rckn->brcn", a.double(), w.double())
+              for a, w in ((xs, wb), (xb, ws), (xb, wb)))
+    num = num.to(torch.float32) * scale[None]
+    return num.reshape(x.shape[0], x.shape[1], -1)
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    v = torch.tensor([1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -12, 1.0 + 2.0 ** -12],
+                     dtype=torch.float32)
+    np.testing.assert_array_equal(
+        _tf32_rna(v).numpy(),
+        np.array([1.0, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                  1.0 + 2.0 ** -10, 1.0], np.float32))
+    big, small = _tf32_split(torch.from_numpy(
+        np.random.default_rng(0).standard_normal(1000).astype(np.float32)))
+    assert bool((big.view(torch.int32) & 0x1FFF == 0).all())
+    assert bool((small.view(torch.int32) & 0x1FFF == 0).all())
+
+
+@pytest.mark.parametrize("B,R,C,rows,cols",
+                         SWEEP + [(37, 2, 5, 32, 16), (4, 7, 4, 128, 64)])
+def test_crossbar_3xtf32_split_within_kernel_bound(B, R, C, rows, cols):
+    x, gp, gn, sc, _ = _t(*_cb_operands(21, B, R, C, rows, cols))
+    plain = tref.crossbar_mvm_partials_ref(x, gp, gn, sc)
+    assert _rel(_partials_3xtf32(x, gp, gn, sc), plain) <= 1e-5
+
+
+def test_crossbar_3xtf32_split_on_the_deep_app_layer0():
+    """The deep app's layer-0 crossbar operands, as the memristor chip's
+    stream hands them to the kernel, at B = 256."""
+    from repro_torch.chip import compile_chip
+    from repro_torch.core import crossbar_layer as tcl
+    spec = tcl.MLPSpec((784, 200, 100, 10), activation="threshold",
+                       out_activation="linear")
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    chip = compile_chip(spec, params=params, system="memristor",
+                        device="cpu")
+    p = chip.plan[0].tiles
+    x = torch.from_numpy(np.random.default_rng(22).uniform(
+        0, 1, (256, 784)).astype(np.float32))
+    xt = tcl.tile_inputs(p, x)
+    assert tuple(xt.shape) == (256, 7, 128)
+    plain = tref.crossbar_mvm_partials_ref(xt, p.gp, p.gn, p.scale)
+    assert _rel(_partials_3xtf32(xt, p.gp, p.gn, p.scale), plain) <= 1e-5
+
+
 # ---------------------- int8 MAC array (K2, K3) ----------------------- #
 @pytest.mark.parametrize("B,K,N", [(1, 256, 128), (37, 300, 130),
                                    (128, 784, 200), (200, 100, 10)])
