@@ -53,9 +53,9 @@
 //               significant bits, where plain TF32 keeps 11. The error
 //               against the IEEE f32 plain version is about 1e-6 of the
 //               largest output on the deep app's operands and the test
-//               sweep (rel bound 1e-5; plain TF32 would give ~3e-4);
-//               tests/test_torch_kernels.py emulates the split on the
-//               CPU and pins it.
+//               sweep, within the unchanged rel bound of 1e-5, which
+//               plain TF32 would not meet; tests/test_torch_kernels.py
+//               emulates the split on the CPU and pins it.
 //       bf16 x: k16 with bf16(gp − gn) as B: products are exact in f32
 //               and sums stay f32.
 //   * The scales of the next row chunk are read into shared memory a
