@@ -439,7 +439,9 @@ cudaError_t launch(dim3 grid, cudaStream_t stream, const void* x,
                    const float* bias, float* out, int B, int R, int C,
                    int rows, int cols, int act, int xbytes, int ovec) {
   constexpr int kSmem = Layout<kBf16>::kSmem;
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // above 48 KB of dynamic shared memory must be allowed, on the
+  // device the launch goes to
+  const cudaError_t attr = cudaFuncSetAttribute(
       crossbar_mvm_kernel<kBf16, kPartials>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;

@@ -268,7 +268,9 @@ cudaError_t launch(cudaStream_t stream, const void* x, const int8_t* w,
                    const float* scale, const float* offset, void* out, int B,
                    int K, int N, int act, int fused, int wvec) {
   constexpr int kSmem = smem_bytes<kBN>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // above 48 KB of dynamic shared memory must be allowed, on the
+  // device the launch goes to
+  const cudaError_t attr = cudaFuncSetAttribute(
       int8_matmul_kernel<kSigned, kXBytes, kBN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
