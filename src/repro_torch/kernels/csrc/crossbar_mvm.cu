@@ -29,43 +29,40 @@
 // 0), not the tensor cores. The first version of this kernel did IEEE
 // f32 FMAs on the CUDA cores, held to the 67 TFLOP/s f32 rate.
 //
-// Design: one block of 8 warps owns a 128 (batch) × 64 (column of
-// C·cols) output tile, each warp 32 × 32 of it; a column tile spans
-// several crossbar tiles c when cols < 64. The TPU grid's sequential R
-// axis becomes a loop inside the block, which walks (r, k) in steps of
-// 32 crossbar rows:
+// Design: one block of two warpgroups owns a 128 (batch) × 64 (column
+// of C·cols) output tile; a column tile spans several crossbar tiles c
+// when cols < 64. The TPU grid's sequential R axis becomes a loop
+// inside the block, which walks (r, k) in steps of 32 crossbar rows:
 //   * x arrives through a four-stage cp.async ring (16-byte copies
-//     where the rows allow, zero-filled past the batch and the rows).
+//     where the rows allow, zero-filled past the batch and the rows);
+//     its rows are padded so that the fragment reads hit distinct banks.
 //   * gp and gn are read one step ahead into registers (lanes on
 //     neighbouring columns, so every load is coalesced), and gp − gn is
-//     formed once per element and stored, double-buffered, as [column]
-//     [k]: f32 as its TF32 big and small halves, bf16 rounded. The
-//     weights are small (1.8 MB for layer 0) and come from L2.
-//   * Shared-memory rows of x and W are padded by 4 words, so the
-//     fragment reads and the 16-byte W stores hit distinct banks.
-//   * Each warp runs mma.sync with both operands from registers:
-//       f32 x:  3×TF32, m16n8k8. Each operand v splits into big =
-//               tf32(v) and small = tf32(v − big), rounded to nearest
-//               with ties away (integer ops on the bits: the same
-//               rounding as cvt.rna.tf32.f32, which measured slower on
-//               the H100). The accumulator takes a_small·b_big, then
-//               a_big·b_small, then a_big·b_big; the small·small term
-//               (~2^-22 relative) is dropped, so a product keeps about
-//               22 significant bits, where plain TF32 keeps 11. The
-//               error against the IEEE f32 plain version is about 1e-6
-//               of the largest output on the deep app's operands and the
-//               test sweep, within the unchanged rel bound of 1e-5,
-//               which plain TF32 would not meet; tests/test_torch_
-//               kernels.py emulates the split on the CPU and pins it.
-//       bf16 x: m16n8k16 with bf16(gp − gn) as B: products are exact in
-//               f32 and sums stay f32.
+//     formed once per element and stored, double-buffered, as K-major
+//     core matrices: f32 as its TF32 big and small halves, bf16 rounded.
+//     The weights are small (1.8 MB for layer 0) and come from L2.
+//   * Each warpgroup runs wgmma.m64n64 with A (x) from registers and B
+//     from shared memory:
+//       f32 x:  3×TF32, k8. Each operand v splits into big = tf32(v) and
+//               small = tf32(v − big), rounded to nearest with ties away
+//               (integer ops on the bits: the same rounding as
+//               cvt.rna.tf32.f32, which measured slower on the H100). The
+//               accumulator takes a_small·b_big, then a_big·b_small,
+//               then a_big·b_big; the small·small term (~2^-22
+//               relative) is dropped, so a product keeps about 22
+//               significant bits, where plain TF32 keeps 11. The error
+//               against the IEEE f32 plain version is about 1e-6 of the
+//               largest output on the deep app's operands and the test
+//               sweep, within the unchanged rel bound of 1e-5, which
+//               plain TF32 would not meet; tests/test_torch_kernels.py
+//               emulates the split on the CPU and pins it.
+//       bf16 x: k16 with bf16(gp − gn) as B: products are exact in f32
+//               and sums stay f32.
 //   * The scales of the next row chunk are read into shared memory a
 //     chunk ahead; each chunk's sums are scaled in registers before
 //     they are summed (reduce) or stored (partials), as the reference's
 //     oracle does. Partials leave as 8-byte stores of neighbouring
-//     columns: each store instruction of a warp fills eight whole
-//     32-byte sectors, so staging them through shared memory would save
-//     no device-memory traffic.
+//     columns, which fill whole 32-byte sectors.
 // Ragged batch, rows and columns are masked in the kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,25 +79,24 @@ using repro_torch::cp_async;
 constexpr int kBM = 128;           // batch rows of a block tile
 constexpr int kBN = 64;            // columns of C·cols of a block tile
 constexpr int kBK = 32;            // crossbar rows a pipeline step
-constexpr int kThreads = 256;      // 8 warps: 4 (batch) × 2 (columns)
-constexpr int kWM = 32;            // batch rows of a warp
-constexpr int kWN = 32;            // columns of a warp
+constexpr int kThreads = 256;      // two warpgroups, 64 batch rows each
 constexpr int kStages = 4;         // x ring; W is double-buffered
+constexpr int kCore = 128;         // bytes of one 8 × 16-byte core matrix
 
 template <bool kBf16>
 struct Layout {
-  static constexpr int kPack = kBf16 ? 2 : 1;       // elements a word
-  // a row of x or W in shared memory: kBK elements and a 4-word pad
-  static constexpr int kRowW = kBK / kPack + 4;     // words
-  static constexpr int kXS = kRowW * kPack;         // elements
-  static constexpr int kXBytes = kBM * kRowW * 4;
-  // W as [column][k]; f32 keeps a big and a small half
-  static constexpr int kWHalfW = kBN * kRowW;       // words
-  static constexpr int kWBytes = (kBf16 ? 1 : 2) * kWHalfW * 4;
-  // a thread stages kWItems runs of kKRun neighbouring k of one column,
-  // one 16-byte store each
-  static constexpr int kKRun = 4 * kPack;
-  static constexpr int kWItems = kBK / kKRun / (kThreads / kBN);
+  // x rows: kBK elements plus a pad that keeps the fragment reads free
+  // of bank conflicts and the rows 16-byte aligned
+  static constexpr int kXS = kBf16 ? kBK + 8 : kBK + 4;  // elements
+  static constexpr int kXBytes = kBM * kXS * (kBf16 ? 2 : 4);
+  // W, K-major core matrices: kKCore k-elements a core row, kSBO bytes
+  // between the 8-column groups; f32 keeps a big and a small half
+  static constexpr int kKCore = kBf16 ? 8 : 4;
+  static constexpr int kSBO = kBK / kKCore * kCore;
+  static constexpr int kWHalf = kBN / 8 * kSBO;
+  static constexpr int kWBytes = kBf16 ? kWHalf : 2 * kWHalf;
+  // a thread stages kWItems runs of kKCore neighbouring k of one column
+  static constexpr int kWItems = kBK / kKCore / (kThreads / kBN);
   // then the scales of two row chunks, kBN floats each
   static constexpr int kSmem =
       kStages * kXBytes + 2 * kWBytes + 2 * kBN * 4;
@@ -160,12 +156,12 @@ __device__ __forceinline__ void load_x_any(void* xs, const void* x,
 }
 
 // One step of gp and gn as this thread reads them: column n0 + tid % 64
-// (fixed for the whole block), kWItems runs of kKRun neighbouring k.
+// (fixed for the whole block), kWItems runs of kKCore neighbouring k.
 // Lanes read neighbouring columns, so each load is coalesced.
 template <bool kBf16>
 struct WRegs {
   static constexpr int kI = Layout<kBf16>::kWItems;
-  static constexpr int kJ = Layout<kBf16>::kKRun;
+  static constexpr int kJ = Layout<kBf16>::kKCore;
   float gp[kI][kJ];
   float gn[kI][kJ];
 };
@@ -188,18 +184,18 @@ __device__ __forceinline__ void load_w(WRegs<kBf16>& w, const float* gp,
     }
 }
 
-// Form gp − gn once per element and store it where the fragments are
-// read: four words of one column's row per run. f32 stores the TF32 big
-// and small halves, bf16 the rounded difference, two k to a word.
+// Form gp − gn once per element and store it where wgmma reads it: one
+// 16-byte row of a K-major core matrix per run. f32 stores the TF32
+// big and small halves, bf16 the rounded difference.
 template <bool kBf16>
 __device__ __forceinline__ void store_w(const WRegs<kBf16>& w,
-                                        uint32_t* ws) {
+                                        unsigned char* ws) {
   using L = Layout<kBf16>;
   const int n = threadIdx.x % kBN;
 #pragma unroll
   for (int i = 0; i < L::kWItems; ++i) {
     const int kb = threadIdx.x / kBN + i * (kThreads / kBN);
-    uint32_t* row = ws + n * L::kRowW + kb * 4;
+    unsigned char* row = ws + (n / 8) * L::kSBO + kb * kCore + (n % 8) * 16;
     if constexpr (kBf16) {
       uint32_t h[4];
 #pragma unroll
@@ -220,79 +216,68 @@ __device__ __forceinline__ void store_w(const WRegs<kBf16>& w,
       }
       *reinterpret_cast<uint4*>(row) =
           make_uint4(big[0], big[1], big[2], big[3]);
-      *reinterpret_cast<uint4*>(row + L::kWHalfW) =
+      *reinterpret_cast<uint4*>(row + L::kWHalf) =
           make_uint4(small[0], small[1], small[2], small[3]);
     }
   }
+  repro_torch::fence_proxy_async();
 }
 
-// One pipeline step on the staged tiles: the warp's 32 × 32 tile as
-// 2 × 4 fragments of 16 × 8, rows wm0.., columns wn0.. of the block.
+// One pipeline step on the staged tiles: the warpgroup's 64 × 64 tile,
+// A (x) from registers, B (W) from shared memory.
 template <bool kBf16>
-__device__ __forceinline__ void compute_step(const uint32_t* xs,
-                                             const uint32_t* ws,
-                                             float (&acc)[2][4][4], int wm0,
-                                             int wn0, int g, int t) {
-  constexpr int kRowW = Layout<kBf16>::kRowW;
-  // k0 is the word of the fragment's first k: k8 (tf32) and k16 (bf16)
-  // steps both span 8 words of a row
+__device__ __forceinline__ void compute_step(const unsigned char* xs_raw,
+                                             const unsigned char* ws,
+                                             float (&acc)[32], int row,
+                                             int t) {
+  using L = Layout<kBf16>;
+  if constexpr (kBf16) {
+    constexpr int kXW = L::kXS / 2;   // row stride, words
+    const auto* xs = reinterpret_cast<const uint32_t*>(xs_raw);
+    uint32_t a[kBK / 16][4];
 #pragma unroll
-  for (int k0 = 0; k0 < kRowW - 4; k0 += 8) {
-    if constexpr (kBf16) {
-      uint32_t a[2][4];
-      uint32_t b[4][2];
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      a[ks][0] = xs[row * kXW + ks * 8 + t];
+      a[ks][1] = xs[(row + 8) * kXW + ks * 8 + t];
+      a[ks][2] = xs[row * kXW + ks * 8 + 4 + t];
+      a[ks][3] = xs[(row + 8) * kXW + ks * 8 + 4 + t];
+    }
+    repro_torch::wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t* p = xs + (wm0 + 16 * mt + g) * kRowW + k0 + t;
-        a[mt][0] = p[0];
-        a[mt][1] = p[8 * kRowW];
-        a[mt][2] = p[4];
-        a[mt][3] = p[8 * kRowW + 4];
-      }
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      repro_torch::wgmma_bf16(
+          acc, a[ks], repro_torch::wgmma_desc(ws + ks * 2 * kCore, kCore,
+                                              L::kSBO));
+    }
+  } else {
+    constexpr int kXS = L::kXS;
+    const auto* xs = reinterpret_cast<const float*>(xs_raw);
+    uint32_t ab[kBK / 8][4];
+    uint32_t as[kBK / 8][4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t* p = ws + (wn0 + 8 * nt + g) * kRowW + k0 + t;
-        b[nt][0] = p[0];
-        b[nt][1] = p[4];
-      }
+    for (int ks = 0; ks < kBK / 8; ++ks) {
+      const int k = ks * 8 + t;
+      repro_torch::tf32_split(xs[row * kXS + k], ab[ks][0], as[ks][0]);
+      repro_torch::tf32_split(xs[(row + 8) * kXS + k], ab[ks][1],
+                              as[ks][1]);
+      repro_torch::tf32_split(xs[row * kXS + k + 4], ab[ks][2], as[ks][2]);
+      repro_torch::tf32_split(xs[(row + 8) * kXS + k + 4], ab[ks][3],
+                              as[ks][3]);
+    }
+    repro_torch::wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          repro_torch::mma_bf16(acc[mt][nt], a[mt], b[nt]);
-    } else {
-      constexpr int kHalf = Layout<kBf16>::kWHalfW;
-      uint32_t ab[2][4];
-      uint32_t as[2][4];
-      uint32_t bb[4][2];
-      uint32_t bs[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* p = reinterpret_cast<const float*>(xs) +
-                         (wm0 + 16 * mt + g) * kRowW + k0 + t;
-        repro_torch::tf32_split(p[0], ab[mt][0], as[mt][0]);
-        repro_torch::tf32_split(p[8 * kRowW], ab[mt][1], as[mt][1]);
-        repro_torch::tf32_split(p[4], ab[mt][2], as[mt][2]);
-        repro_torch::tf32_split(p[8 * kRowW + 4], ab[mt][3], as[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t* p = ws + (wn0 + 8 * nt + g) * kRowW + k0 + t;
-        bb[nt][0] = p[0];
-        bb[nt][1] = p[4];
-        bs[nt][0] = p[kHalf];
-        bs[nt][1] = p[kHalf + 4];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          repro_torch::mma_tf32(acc[mt][nt], as[mt], bb[nt]);
-          repro_torch::mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
-          repro_torch::mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
-        }
+    for (int ks = 0; ks < kBK / 8; ++ks) {
+      const unsigned char* wb = ws + ks * 2 * kCore;
+      const uint64_t big = repro_torch::wgmma_desc(wb, kCore, L::kSBO);
+      const uint64_t small =
+          repro_torch::wgmma_desc(wb + L::kWHalf, kCore, L::kSBO);
+      repro_torch::wgmma_tf32(acc, as[ks], big);
+      repro_torch::wgmma_tf32(acc, ab[ks], small);
+      repro_torch::wgmma_tf32(acc, ab[ks], big);
     }
   }
+  repro_torch::wgmma_commit();
+  repro_torch::wgmma_wait<0>();
 }
 
 // Write the thread's two neighbouring results of one fragment row:
@@ -317,13 +302,10 @@ crossbar_mvm_kernel(const void* __restrict__ x,
                     float* __restrict__ out, int B, int R, int C, int rows,
                     int cols, int act, int xbytes, int ovec) {
   using L = Layout<kBf16>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto stage_x = [&](int s) {
-    return reinterpret_cast<uint32_t*>(smem + s * L::kXBytes);
-  };
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto stage_x = [&](int s) { return smem + s * L::kXBytes; };
   auto stage_w = [&](int s) {
-    return reinterpret_cast<uint32_t*>(smem + kStages * L::kXBytes +
-                                       s * L::kWBytes);
+    return smem + kStages * L::kXBytes + s * L::kWBytes;
   };
   // the scales of row chunk r (slot r % 2), read one chunk ahead so
   // that the epilogue never waits on device memory
@@ -334,13 +316,17 @@ crossbar_mvm_kernel(const void* __restrict__ x,
   const int warp = threadIdx.x / 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int wm0 = (warp % 4) * kWM;
-  const int wn0 = (warp / 4) * kWN;
+  const int row = warp * 16 + g;   // warpgroup warp / 4, its warp warp % 4
   const int n0 = blockIdx.x * kBN;
   const int b0 = blockIdx.y * kBM;
   const int ncols = C * cols;
   const int ksteps = (rows + kBK - 1) / kBK;
-  const int steps = R * ksteps;
+  // partials mode: one row chunk a block (blockIdx.z), so that a small
+  // batch still spreads over the card; reduce mode sums the chunks, in
+  // order, in one block. The block walks steps s0 .. steps - 1.
+  const int r0 = kPartials ? static_cast<int>(blockIdx.z) : 0;
+  const int s0 = r0 * ksteps;
+  const int steps = (kPartials ? r0 + 1 : R) * ksteps;
 
   // where this thread's W column starts inside a row chunk's tiles
   int at = -1;
@@ -356,52 +342,51 @@ crossbar_mvm_kernel(const void* __restrict__ x,
         ? __ldg(scale + static_cast<long long>(r) * ncols + n) : 0.f;
   };
 
-  float acc[2][4][4];
-  float total[2][4][4];
+  float acc[32];
+  float total[32];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[mt][nt][i] = 0.f;
-        total[mt][nt][i] = 0.f;
-      }
+  for (int i = 0; i < 32; ++i) {
+    acc[i] = 0.f;
+    total[i] = 0.f;
+  }
 
   // prologue: x for the first kStages - 1 steps, W for the first
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int j = 0; j < kStages - 1; ++j) {
+    const int s = s0 + j;
     if (s < steps) {
-      load_x_any<kBf16>(stage_x(s), x, xbytes, b0, B, R, s / ksteps, rows,
+      load_x_any<kBf16>(stage_x(j), x, xbytes, b0, B, R, s / ksteps, rows,
                         (s % ksteps) * kBK);
     }
     repro_torch::cp_async_commit();
   }
   WRegs<kBf16> w;
-  load_w<kBf16>(w, gp, gn, at, 0, C, rows, cols, 0);
+  load_w<kBf16>(w, gp, gn, at, r0, C, rows, cols, 0);
   store_w<kBf16>(w, stage_w(0));
-  if (threadIdx.x < kBN) sc_s[threadIdx.x] = scale_of(0);
+  if (threadIdx.x < kBN) sc_s[(r0 % 2) * kBN + threadIdx.x] = scale_of(r0);
 
-  for (int s = 0; s < steps; ++s) {
+  for (int s = s0; s < steps; ++s) {
     const int r = s / ksteps;
+    const int j = s - s0;   // the block's own step: ring slots
     repro_torch::cp_async_wait<kStages - 2>();
     __syncthreads();
     const int ahead = s + kStages - 1;
     if (ahead < steps) {  // refill the slot step s - 1 used
-      load_x_any<kBf16>(stage_x(ahead % kStages), x, xbytes, b0, B, R,
-                        ahead / ksteps, rows, (ahead % ksteps) * kBK);
+      load_x_any<kBf16>(stage_x((j + kStages - 1) % kStages), x, xbytes,
+                        b0, B, R, ahead / ksteps, rows,
+                        (ahead % ksteps) * kBK);
     }
     repro_torch::cp_async_commit();
     // chunk r + 1's scales fly while this step computes
-    const float sc_next = s % ksteps == 0 ? scale_of(r + 1) : 0.f;
+    const float sc_next =
+        s % ksteps == 0 && s + ksteps < steps ? scale_of(r + 1) : 0.f;
     const bool more = s + 1 < steps;
     if (more) {  // the next step's W flies while this one computes
       load_w<kBf16>(w, gp, gn, at, (s + 1) / ksteps, C, rows, cols,
                     ((s + 1) % ksteps) * kBK);
     }
-    compute_step<kBf16>(stage_x(s % kStages), stage_w(s % 2), acc, wm0,
-                        wn0, g, t);
-    if (more) store_w<kBf16>(w, stage_w((s + 1) % 2));
+    compute_step<kBf16>(stage_x(j % kStages), stage_w(j % 2), acc, row, t);
+    if (more) store_w<kBf16>(w, stage_w((j + 1) % 2));
     if (s % ksteps == 0 && threadIdx.x < kBN) {
       sc_s[((r + 1) % 2) * kBN + threadIdx.x] = sc_next;
     }
@@ -410,55 +395,50 @@ crossbar_mvm_kernel(const void* __restrict__ x,
     // end of row chunk r: scale its sums in registers, then store them
     // (partials) or add them to the running total (reduce)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int nb = wn0 + 8 * nt + 2 * t;
-      const float* sc = sc_s + (r % 2) * kBN + nb;
+    for (int i = 0; i < 8; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
+      const float* sc = sc_s + (r % 2) * kBN + 8 * i + 2 * t;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          float* d = acc[mt][nt] + 2 * v;
-          const float p0 = __fmul_rn(d[0], sc[0]);
-          const float p1 = __fmul_rn(d[1], sc[1]);
-          d[0] = 0.f;
-          d[1] = 0.f;
-          const int b = b0 + wm0 + 16 * mt + g + 8 * v;
-          if (kPartials) {
-            if (b < B) {
-              store_pair(out + (static_cast<long long>(b) * R + r) * ncols +
-                             n0 + nb,
-                         n0 + nb, ncols, p0, p1, ovec);
-            }
-          } else {
-            float* tt = total[mt][nt] + 2 * v;
-            tt[0] = __fadd_rn(tt[0], p0);
-            tt[1] = __fadd_rn(tt[1], p1);
+      for (int v = 0; v < 2; ++v) {
+        float* d = acc + 4 * i + 2 * v;
+        const float p0 = __fmul_rn(d[0], sc[0]);
+        const float p1 = __fmul_rn(d[1], sc[1]);
+        d[0] = 0.f;
+        d[1] = 0.f;
+        const int b = b0 + row + 8 * v;
+        if (kPartials) {
+          if (b < B) {
+            store_pair(out + (static_cast<long long>(b) * R + r) * ncols + n,
+                       n, ncols, p0, p1, ovec);
           }
+        } else {
+          float* tt = total + 4 * i + 2 * v;
+          tt[0] = __fadd_rn(tt[0], p0);
+          tt[1] = __fadd_rn(tt[1], p1);
         }
+      }
     }
   }
   repro_torch::cp_async_wait<0>();
 
   if (!kPartials) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = n0 + wn0 + 8 * nt + 2 * t;
+    for (int i = 0; i < 8; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
       float bv[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         bv[h] = (bias != nullptr && n + h < ncols) ? bias[n + h] : 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int b = b0 + wm0 + 16 * mt + g + 8 * v;
-          if (b >= B) continue;
-          const float* tt = total[mt][nt] + 2 * v;
-          store_pair(out + static_cast<long long>(b) * ncols + n, n, ncols,
-                     repro_torch::activate(__fadd_rn(tt[0], bv[0]), act),
-                     repro_torch::activate(__fadd_rn(tt[1], bv[1]), act),
-                     ovec);
-        }
+      for (int v = 0; v < 2; ++v) {
+        const int b = b0 + row + 8 * v;
+        if (b >= B) continue;
+        const float* tt = total + 4 * i + 2 * v;
+        store_pair(out + static_cast<long long>(b) * ncols + n, n, ncols,
+                   repro_torch::activate(__fadd_rn(tt[0], bv[0]), act),
+                   repro_torch::activate(__fadd_rn(tt[1], bv[1]), act),
+                   ovec);
+      }
     }
   }
 }
@@ -503,7 +483,8 @@ extern "C" int crossbar_mvm_launch(const void* x, int x_bf16,
                                    void* out, int B, int R, int C, int rows,
                                    int cols, int activation, int partials,
                                    void* stream) {
-  const dim3 grid((C * cols + kBN - 1) / kBN, (B + kBM - 1) / kBM);
+  const dim3 grid((C * cols + kBN - 1) / kBN, (B + kBM - 1) / kBM,
+                  partials ? R : 1);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* gpf = static_cast<const float*>(gp);
   const auto* gnf = static_cast<const float*>(gn);

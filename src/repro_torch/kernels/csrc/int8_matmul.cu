@@ -53,7 +53,6 @@
 namespace {
 
 constexpr int kBM = 128;            // batch rows of a block
-constexpr int kTileN = 256;         // columns of a block
 constexpr int kBK = 64;             // bytes of K a pipeline step
 constexpr int kThreads = 512;       // 16 warps: 8 (batch) × 2 (columns)
 constexpr int kStages = 4;          // x ring
@@ -282,6 +281,18 @@ cudaError_t launch(cudaStream_t stream, const void* x, const int8_t* w,
   return cudaGetLastError();
 }
 
+template <bool kSigned, int kXBytes>
+cudaError_t launch_bn(cudaStream_t stream, const void* x, const int8_t* w,
+                      const float* scale, const float* offset, void* out,
+                      int B, int K, int N, int act, int fused, int wvec) {
+  if (N <= 64 || B <= kBM) {
+    return launch<kSigned, kXBytes, 64>(stream, x, w, scale, offset, out, B,
+                                        K, N, act, fused, wvec);
+  }
+  return launch<kSigned, kXBytes, 256>(stream, x, w, scale, offset, out, B,
+                                       K, N, act, fused, wvec);
+}
+
 template <bool kSigned>
 cudaError_t launch_x(cudaStream_t stream, const void* x, const int8_t* w,
                      const float* scale, const float* offset, void* out,
@@ -290,19 +301,19 @@ cudaError_t launch_x(cudaStream_t stream, const void* x, const int8_t* w,
   // bytes are not 16-byte aligned
   const auto addr = reinterpret_cast<uintptr_t>(x);
   if (K % 16 == 0 && addr % 16 == 0) {
-    return launch<kSigned, 16, kTileN>(stream, x, w, scale, offset, out,
-                                      B, K, N, act, fused, wvec);
+    return launch_bn<kSigned, 16>(stream, x, w, scale, offset, out, B, K, N,
+                                  act, fused, wvec);
   }
   if (K % 8 == 0 && addr % 8 == 0) {
-    return launch<kSigned, 8, kTileN>(stream, x, w, scale, offset, out,
-                                      B, K, N, act, fused, wvec);
+    return launch_bn<kSigned, 8>(stream, x, w, scale, offset, out, B, K, N,
+                                 act, fused, wvec);
   }
   if (K % 4 == 0 && addr % 4 == 0) {
-    return launch<kSigned, 4, kTileN>(stream, x, w, scale, offset, out,
-                                      B, K, N, act, fused, wvec);
+    return launch_bn<kSigned, 4>(stream, x, w, scale, offset, out, B, K, N,
+                                 act, fused, wvec);
   }
-  return launch<kSigned, 1, kTileN>(stream, x, w, scale, offset, out,
-                                      B, K, N, act, fused, wvec);
+  return launch_bn<kSigned, 1>(stream, x, w, scale, offset, out, B, K, N,
+                               act, fused, wvec);
 }
 
 }  // namespace
