@@ -302,6 +302,8 @@ crossbar_mvm_kernel(const void* __restrict__ x,
                     float* __restrict__ out, int B, int R, int C, int rows,
                     int cols, int act, int xbytes, int ovec) {
   using L = Layout<kBf16>;
+  static_assert(kBM * (kBN + 4) * 4 <= kStages * L::kXBytes,
+                "the staged partials tile must fit in the x ring");
   extern __shared__ __align__(128) unsigned char smem[];
   auto stage_x = [&](int s) { return smem + s * L::kXBytes; };
   auto stage_w = [&](int s) {
@@ -396,7 +398,6 @@ crossbar_mvm_kernel(const void* __restrict__ x,
     // (partials) or add them to the running total (reduce)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int n = n0 + 8 * i + 2 * t;
       const float* sc = sc_s + (r % 2) * kBN + 8 * i + 2 * t;
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
@@ -405,14 +406,11 @@ crossbar_mvm_kernel(const void* __restrict__ x,
         const float p1 = __fmul_rn(d[1], sc[1]);
         d[0] = 0.f;
         d[1] = 0.f;
-        const int b = b0 + row + 8 * v;
-        if (kPartials) {
-          if (b < B) {
-            store_pair(out + (static_cast<long long>(b) * R + r) * ncols + n,
-                       n, ncols, p0, p1, ovec);
-          }
+        float* tt = total + 4 * i + 2 * v;
+        if (kPartials) {  // the block's one chunk, stored below
+          tt[0] = p0;
+          tt[1] = p1;
         } else {
-          float* tt = total + 4 * i + 2 * v;
           tt[0] = __fadd_rn(tt[0], p0);
           tt[1] = __fadd_rn(tt[1], p1);
         }
@@ -421,7 +419,39 @@ crossbar_mvm_kernel(const void* __restrict__ x,
   }
   repro_torch::cp_async_wait<0>();
 
-  if (!kPartials) {
+  if (kPartials) {
+    // stage the tile through the x ring, idle now, and write it with
+    // 16-byte stores of four neighbouring columns
+    constexpr int kOS = kBN + 4;   // floats a staged row
+    float* os = reinterpret_cast<float*>(smem);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        *reinterpret_cast<float2*>(os + (row + 8 * v) * kOS + 8 * i +
+                                   2 * t) =
+            make_float2(total[4 * i + 2 * v], total[4 * i + 2 * v + 1]);
+      }
+    __syncthreads();
+    const bool vec4 = ovec && ncols % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    for (int e = threadIdx.x; e < kBM * kBN / 4; e += kThreads) {
+      const int m = e / (kBN / 4);
+      const int q = (e % (kBN / 4)) * 4;
+      const int b = b0 + m;
+      const int n = n0 + q;
+      if (b >= B || n >= ncols) continue;
+      float* dst = out + (static_cast<long long>(b) * R + r0) * ncols + n;
+      const float* src = os + m * kOS + q;
+      if (vec4 && n + 3 < ncols) {
+        *reinterpret_cast<float4*>(dst) =
+            *reinterpret_cast<const float4*>(src);
+      } else {
+        for (int h = 0; h < 4 && n + h < ncols; ++h) dst[h] = src[h];
+      }
+    }
+  } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int n = n0 + 8 * i + 2 * t;
