@@ -23,12 +23,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
      equal the direct stream;
   4. times: CUDA events over many launches after warm-up, for each
      kernel, its plain version and one PyTorch call computing the same
-     function, queued behind a sleep so that they time the card's work
-     (and, beside them, at the host's launch pace), with the least time
-     the card could take on the kernel's route (the bound);
-     stream items/s of the kernel and einsum paths in alternating
-     rounds, with the device's busy time from ``torch.profiler``; and
-     engine steps/s.
+     function, at the pace the host launches them (``ms``, ``plain_ms``,
+     ``library_ms``) and queued behind a sleep so that they time the
+     card's own work (``device_ms``, ``plain_device_ms``,
+     ``library_device_ms``), with the least time the card could take on
+     the kernel's route (the bound); the same at the serving batches 4
+     and 1; stream items/s of the kernel and einsum paths in
+     alternating rounds, with the device's busy time from
+     ``torch.profiler``; and engine steps/s, the median of three drains
+     after a warm-up drain.
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -66,6 +69,8 @@ TF32_PRODUCTS = 3          # the crossbar kernel's f32 route: 3×TF32
 DEEP = (784, 200, 100, 10)
 STREAM_B = 16384
 STREAM_ROUNDS = 5      # × (einsum, kernel, kernel, einsum) stream timings
+SERVE_BATCHES = (4, 1)  # kernel times at the engine's batches (slots = 4)
+SERVE_DRAINS = 3       # engine drains timed after one warm-up drain
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock: covers 20 launches
 
 
@@ -378,16 +383,22 @@ def _bound(nbytes: float, ops_: float, rate: float):
     return t_bytes, t_ops
 
 
+# a kernel row's times: (key, timer, which callable)
+TIME_KEYS = (("ms", "_time_ms", 0), ("plain_ms", "_time_ms", 1),
+             ("library_ms", "_time_ms", 2), ("device_ms", "_device_ms", 0),
+             ("plain_device_ms", "_device_ms", 1),
+             ("library_device_ms", "_device_ms", 2))
+
+
 def _times(torch, kernel, plain, library) -> dict:
-    """A kernel row's times: the card's own time of the kernel, its plain
-    version and the library call (``_device_ms``), and the kernel's and
-    the library call's time at the host's launch pace (``_time_ms``),
-    which adds the Python wrapper's overhead where it is the longer."""
-    return {"ms": _device_ms(torch, kernel),
-            "plain_ms": _device_ms(torch, plain),
-            "library_ms": _device_ms(torch, library),
-            "host_paced_ms": _time_ms(torch, kernel),
-            "library_host_paced_ms": _time_ms(torch, library)}
+    """A kernel row's times of the kernel, its plain version and the
+    library call: at the host's launch pace (``_time_ms``: ``ms``,
+    ``plain_ms``, ``library_ms``, which include the Python wrapper's
+    overhead where it is the longer) and the card's own time
+    (``_device_ms``: the same keys with ``device_``)."""
+    fns = (kernel, plain, library)
+    timers = {"_time_ms": _time_ms, "_device_ms": _device_ms}
+    return {key: timers[timer](torch, fns[i]) for key, timer, i in TIME_KEYS}
 
 
 def _kernel_row(name, source, replaces, launches, layers):
@@ -398,23 +409,20 @@ def _kernel_row(name, source, replaces, launches, layers):
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": max(r["max_abs_err"] for r in layers),
-           "ms": sum(r["ms"] for r in layers),
-           "plain_ms": sum(r["plain_ms"] for r in layers),
            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in layers),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": sum(r["library_ms"] for r in layers),
-           "host_paced_ms": sum(r["host_paced_ms"] for r in layers),
-           "library_host_paced_ms": sum(r["library_host_paced_ms"]
-                                        for r in layers)}
+           **{key: sum(r[key] for r in layers) for key, _, _ in TIME_KEYS}}
     if "ops_ms_f32_cuda_cores" in layers[0]:
         row["bound_ms_f32_cuda_cores"] = sum(
             max(r["bytes_ms"], r["ops_ms_f32_cuda_cores"]) for r in layers)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
     return row
 
 
 def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                 dev, name):
-    rows_cb, rows_i8, rows_raw = [], [], []
+    rows_cb, rows_i8, rows_raw, rows_serve = [], [], [], []
     x = torch.rand((STREAM_B, DEEP[0]),
                    generator=torch.Generator().manual_seed(3)).to(dev)
 
@@ -452,6 +460,16 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                      lambda: torch.matmul(xr, w_fold)),
             "bytes_ms": t_bytes, "ops_ms": t_ops,
             "ops_ms_f32_cuda_cores": t_ops_f32})
+        for b in SERVE_BATCHES:
+            xs = xt[:b]
+            rows_serve.append({
+                "kernel": "crossbar_mvm", "layer": i, "batch": b,
+                **_times(torch,
+                         lambda: ops.crossbar_mvm(xs, p.gp, p.gn, p.scale,
+                                                  partials=True),
+                         lambda: ref.crossbar_mvm_partials_ref(
+                             xs, p.gp, p.gn, p.scale),
+                         lambda: torch.matmul(xs.transpose(0, 1), w_fold))})
         h = tcompile._apply_stream_layer(layer, h, False)
 
     # int8 kernel, fused, on the digital chip's own synapses and codes
@@ -482,6 +500,16 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                                                        offset),
                      lib_fused),
             "bytes_ms": t_bytes, "ops_ms": t_ops})
+        for b in SERVE_BATCHES:
+            xs = xq[:b]
+            rows_serve.append({
+                "kernel": "int8_matmul_fused", "layer": i, "batch": b,
+                **_times(torch,
+                         lambda: ops.int8_matmul(xs, p.wq, p.scale, offset),
+                         lambda: ref.int8_matmul_fused_ref(
+                             xs, p.wq, p.scale, offset),
+                         lambda: torch.addcmul(offset, xs.float() @ wf,
+                                               p.scale))})
         raw = ops.int8_matmul(xq, p.wq)
         _require(torch.equal(raw, ref.int8_matmul_ref(xq, p.wq)),
                  f"int8 raw layer {i} (chip operands) not exact")
@@ -497,9 +525,18 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                      lambda: xq.float() @ wf),
             "bytes_ms": rb, "ops_ms": ro})
         h = tcompile._apply_stream_layer(layer, h, False)
-    for r in rows_cb + rows_i8 + rows_raw:
+    for r in rows_cb + rows_i8 + rows_raw + rows_serve:
         r["card"] = name
         _line(r)
+    # the serving batches: each kernel's times summed over the 3 layers,
+    # the launches of one engine step
+    serve = {}
+    for r in rows_serve:
+        sums = serve.setdefault(r["kernel"], {}).setdefault(
+            str(r["batch"]), {key: 0.0 for key, _, _ in TIME_KEYS})
+        for key in sums:
+            sums[key] += r[key]
+    _line({"serving_batch_kernel_ms": serve, "card": name})
 
     kernels = [
         _kernel_row("crossbar_mvm", "src/repro_torch/kernels/csrc/"
@@ -513,8 +550,6 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                             "csrc/int8_matmul.cu",
                             "src/repro/kernels/int8_matmul.py:36",
                             launches["int8_matmul_raw"], rows_raw)]
-    for k in kernels + off_path:
-        k["share_of_bound"] = k["bound_ms"] / k["ms"]
 
     # end to end: stream items/s at B = 16,384, in alternating rounds
     # (einsum, kernel, kernel, einsum) so the two paths share the card's
@@ -535,19 +570,22 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                    "items_per_s": STREAM_B / med * 1e3,
                    **_device_busy(torch, chip, x, use_kernel, med),
                    "card": name})
-        eng = chip.serve(slots=4)
-        gen = torch.Generator().manual_seed(4)
-        for uid in range(32):
-            eng.submit(chip_mod.ChipRequest(
-                uid=uid, items=torch.rand((16, DEEP[0]),
-                                          generator=gen).numpy()))
-        t0 = time.perf_counter()
-        eng.run_until_drained()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        rates = []
+        for _ in range(1 + SERVE_DRAINS):   # the first drain warms up
+            eng = chip.serve(slots=4)
+            gen = torch.Generator().manual_seed(4)
+            for uid in range(32):
+                eng.submit(chip_mod.ChipRequest(
+                    uid=uid, items=torch.rand((16, DEEP[0]),
+                                              generator=gen).numpy()))
+            t0 = time.perf_counter()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            rates.append(eng.steps / (time.perf_counter() - t0))
         _line({"metric": "engine_steps_per_s", "system": system,
-               "slots": 4, "steps": eng.steps, "seconds": dt,
-               "steps_per_s": eng.steps / dt, "card": name})
+               "slots": 4, "steps": eng.steps, "drains": rates[1:],
+               "warm_up_drain": rates[0],
+               "steps_per_s": _quartiles(rates[1:])[0], "card": name})
     return kernels, off_path
 
 

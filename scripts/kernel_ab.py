@@ -1,34 +1,39 @@
 #!/usr/bin/env python3
-"""Compare the CUDA kernels and the serving loop of several checkouts of
-this repository on one card, in one run.
+"""Compare the CUDA kernels of several checkouts of this repository on
+one card, in one process.
 
-    python3 scripts/kernel_ab.py TREE [TREE ...]
+    python3 scripts/kernel_ab.py [--rounds N] TREE [TREE ...]
 
 Each TREE is the root of a checkout (the directory that holds its
 ``src/repro_torch``), for example this one (``.``) and a ``git archive``
-of an older commit unpacked under ``build/``. The script builds every
-tree's kernels first, all at once, then runs one worker process per
-tree in the order given and again in reverse (A B … B A), so that drift
-of the card or the host shows as a difference between the two rounds.
+of an older commit unpacked under ``build/``; its kernels must keep the
+C entry points of ``kernels/build.py``, as every tree since the port
+began does. The script builds each tree's kernel libraries with that
+tree's own ``build.py`` (all at once), loads them all into this
+process and swaps them under this checkout's wrappers: the Python side,
+the process and the card are the same for every tree, only the kernels
+differ. Trees are visited in order, then in reverse, and so on:
 
-Each worker imports only its own tree's ``repro_torch`` and times, on
-the same seeded operands:
+  * in each of N rounds (default 4) it times ``crossbar_mvm`` in
+    partials mode (f32 x) at the deep app's three layer shapes and
+    ``int8_matmul`` fused (uint8 codes) at its three layer shapes, each
+    at B = 16,384 (a streamed batch) and at the serving batches 4 and
+    1: the card's own time (calls queued behind a sleep, ``device_ms``)
+    and the time at the host's launch pace (``host_paced_ms``); and,
+    once a round, the PyTorch call that computes each kernel's function
+    (under ``library``), the same two ways;
+  * then, in 4·N rounds with nothing else between them, one drain of
+    ``chip.serve(slots=4)`` (32 requests of 16 items) on each system
+    and tree: engine steps/s.
 
-  * ``crossbar_mvm`` in partials mode (f32 x) at the deep app's three
-    layer shapes and ``int8_matmul`` fused (uint8 codes) at its three
-    layer shapes, each at B = 16,384 (a streamed batch) and at the
-    serving batches 4 and 1: the card's own time (calls queued behind a
-    sleep) and the time at the host's launch pace, beside one PyTorch
-    call computing the same function, timed the same two ways;
-  * engine steps/s of ``chip.serve(slots=4)`` draining 32 requests of
-    16 items, on both systems, three drains each (median).
-
-It prints the card's name and power limit, one JSON line per tree and
-round, and a last line that sets the rounds side by side. It needs one
-CUDA card and imports nothing of JAX.
+It prints the card's name and power limit, one JSON line per round
+and tree, and a last line with each number's median over the rounds
+(the serving rates also with their quartiles), side by side. It needs
+one CUDA card and imports nothing of JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -38,42 +43,56 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402  (timing and operand helpers)
 
 BATCHES = (cs.STREAM_B, 4, 1)
 CB_LAYERS = ((7, 4, 128, 64), (2, 2, 128, 64), (1, 1, 128, 64))
 I8_LAYERS = ((784, 200), (200, 100), (100, 10))
+SERVE_ROUNDS_PER_ROUND = 4
 
 
-def _two_ways(torch, fn) -> dict:
-    return {"device_ms": cs._device_ms(torch, fn),
-            "host_paced_ms": cs._time_ms(torch, fn)}
+def _build(tree: str) -> subprocess.Popen:
+    """Build ``tree``'s kernels with its own build.py; the process
+    prints the libraries' paths as JSON."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.kernels import build; build.build(); "
+            "print(json.dumps({n: str(build.library_path(n)) "
+            "for n in build.KERNELS}))")
+    return subprocess.Popen([sys.executable, "-c", code,
+                             os.path.join(tree, "src")],
+                            stdout=subprocess.PIPE, text=True)
 
 
-def worker(tree: str) -> dict:
-    import torch
-    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
-    import repro_torch.chip as chip_mod
-    from repro_torch.core import crossbar_layer as tcl
+def _load(build, paths: dict) -> dict:
+    entries = {}
+    for name, path in paths.items():
+        symbol, argtypes = build._ENTRY[name]
+        fn = getattr(ctypes.CDLL(path), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return entries
+
+
+def _calls(torch, dev):
+    """(kernel, layer, batch, kernel call, library call) for every timed
+    launch, on operands made once from seed 0."""
     from repro_torch.kernels import ops
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
+    calls = []
     for B in BATCHES:
         for i, (R, C, r, c) in enumerate(CB_LAYERS):
-            x, gp, gn, sc, _ = cs._cb_operands(torch, gen, dev, B, R, C, r, c)
+            x, gp, gn, sc, _ = cs._cb_operands(torch, gen, dev, B, R, C, r,
+                                               c)
             w = (gp - gn).permute(0, 2, 1, 3).reshape(R, r, C * c) * \
                 sc.reshape(R, 1, C * c)
-            xr = x.transpose(0, 1)
-            rows.append({
-                "kernel": "crossbar_mvm", "layer": i, "batch": B,
-                **_two_ways(torch, lambda: ops.crossbar_mvm(
-                    x, gp, gn, sc, partials=True)),
-                **{f"library_{k}": v for k, v in _two_ways(
-                    torch, lambda: torch.matmul(xr, w)).items()}})
+            calls.append((
+                "crossbar_mvm", i, B,
+                lambda x=x, gp=gp, gn=gn, sc=sc: ops.crossbar_mvm(
+                    x, gp, gn, sc, partials=True),
+                lambda x=x, w=w: torch.matmul(x.transpose(0, 1), w)))
         for i, (K, N) in enumerate(I8_LAYERS):
             xq = torch.randint(0, 256, (B, K), generator=gen, device=dev,
                                dtype=torch.uint8)
@@ -81,50 +100,42 @@ def worker(tree: str) -> dict:
                                dtype=torch.int8)
             s = torch.rand(N, generator=gen, device=dev) * 1e-2
             o = torch.randn(N, generator=gen, device=dev)
-            wf = wq.float()
-            rows.append({
-                "kernel": "int8_matmul_fused", "layer": i, "batch": B,
-                **_two_ways(torch, lambda: ops.int8_matmul(xq, wq, s, o)),
-                **{f"library_{k}": v for k, v in _two_ways(
-                    torch, lambda: torch.addcmul(o, xq.float() @ wf,
-                                                 s)).items()}})
-
-    spec = tcl.MLPSpec(cs.DEEP, activation="threshold",
-                       out_activation="linear")
-    serving = {}
-    for system in ("memristor", "digital"):
-        params = tcl.mlp_init(spec,
-                              generator=torch.Generator().manual_seed(0),
-                              device=dev)
-        chip = chip_mod.compile_chip(spec, params=params, system=system,
-                                     device=dev)
-        rates = []
-        for _ in range(4):   # the first drain warms up
-            eng = chip.serve(slots=4)
-            g = torch.Generator().manual_seed(4)
-            for uid in range(32):
-                eng.submit(chip_mod.ChipRequest(
-                    uid=uid, items=torch.rand((16, cs.DEEP[0]),
-                                              generator=g).numpy()))
-            t0 = time.perf_counter()
-            eng.run_until_drained()
-            torch.cuda.synchronize()
-            rates.append(eng.steps / (time.perf_counter() - t0))
-        serving[system] = statistics.median(rates[1:])
-    return {"tree": tree, "kernels": rows, "engine_steps_per_s": serving}
+            calls.append((
+                "int8_matmul_fused", i, B,
+                lambda xq=xq, wq=wq, s=s, o=o: ops.int8_matmul(xq, wq, s, o),
+                lambda xq=xq, wf=wq.float(), s=s, o=o: torch.addcmul(
+                    o, xq.float() @ wf, s)))
+    return calls
 
 
-def _build(tree: str) -> subprocess.Popen:
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "from repro_torch.kernels import build; build.build()")
-    return subprocess.Popen([sys.executable, "-c", code,
-                             os.path.join(tree, "src")])
+def _drain(torch, chip_mod, chip) -> float:
+    """Engine steps/s of one drain of 32 requests of 16 items."""
+    eng = chip.serve(slots=4)
+    g = torch.Generator().manual_seed(4)
+    for uid in range(32):
+        eng.submit(chip_mod.ChipRequest(
+            uid=uid, items=torch.rand((16, cs.DEEP[0]),
+                                      generator=g).numpy()))
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    return eng.steps / (time.perf_counter() - t0)
+
+
+def _two_ways(torch, fn) -> list:
+    return [cs._device_ms(torch, fn), cs._time_ms(torch, fn)]
+
+
+def _median(values):
+    if isinstance(values[0], list):
+        return [statistics.median(v) for v in zip(*values)]
+    return statistics.median(values)
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "--worker":
-        print(json.dumps(worker(argv[1])), flush=True)
-        return 0
+    rounds = 4
+    if len(argv) >= 2 and argv[0] == "--rounds":
+        rounds, argv = int(argv[1]), argv[2:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -132,46 +143,81 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA card is visible", file=sys.stderr)
         return 2
+    import repro_torch.chip as chip_mod
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.kernels import build
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    builds = [_build(t) for t in argv]
-    if any(p.wait() != 0 for p in builds):
-        print("kernel_ab: a build failed", file=sys.stderr)
-        return 1
-    print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
-    results = {t: [] for t in argv}
-    for rnd, order in enumerate((argv, argv[::-1])):
-        for tree in order:
-            out = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--worker",
-                 tree], check=True, capture_output=True, text=True,
-                timeout=600).stdout.strip().splitlines()[-1]
-            res = json.loads(out)
-            res["round"] = rnd
-            res["card"] = smi
-            print(json.dumps(res), flush=True)
-            results[tree].append(res)
-    # side by side: for each tree, the two rounds' device and host-paced
-    # times of every (kernel, layer, batch), and the serving rates
+    procs = {tree: _build(tree) for tree in argv}
+    paths, libs = {}, {}
+    for tree, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(f"kernel_ab: the build of {tree} failed", file=sys.stderr)
+            return 1
+        paths[tree] = json.loads(out.strip().splitlines()[-1])
+        libs[tree] = _load(build, paths[tree])
+    print(json.dumps({"build_s": time.perf_counter() - t0,
+                      "libraries": paths}), flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    calls = _calls(torch, dev)
+    spec = tcl.MLPSpec(cs.DEEP, activation="threshold",
+                       out_activation="linear")
+    chips = {}
+    for system in ("memristor", "digital"):
+        params = tcl.mlp_init(spec,
+                              generator=torch.Generator().manual_seed(0),
+                              device=dev)
+        chips[system] = chip_mod.compile_chip(spec, params=params,
+                                              system=system, device=dev)
+    build._entries.update(libs[argv[0]])
+    for chip in chips.values():   # warm-up drains
+        _drain(torch, chip_mod, chip)
+
     table = {}
-    for tree, runs in results.items():
-        for res in runs:
-            for r in res["kernels"]:
-                key = f"{r['kernel']}/{r['layer']}/B{r['batch']}"
-                table.setdefault(key, {}).setdefault(tree, []).append(
-                    [r["device_ms"], r["host_paced_ms"],
-                     r["library_device_ms"], r["library_host_paced_ms"]])
-            for system, rate in res["engine_steps_per_s"].items():
-                table.setdefault(f"engine_steps_per_s/{system}", {}) \
-                    .setdefault(tree, []).append(rate)
-    print(json.dumps({"columns": ["device_ms", "host_paced_ms",
-                                  "library_device_ms",
-                                  "library_host_paced_ms"],
-                      "side_by_side": table, "card": smi}), flush=True)
+
+    def keep(key, tree, value):
+        table.setdefault(key, {}).setdefault(tree, []).append(value)
+
+    def order(rnd):
+        return argv if rnd % 2 == 0 else argv[::-1]
+
+    for rnd in range(rounds):
+        for kind, i, B, _, lib in calls:
+            keep(f"{kind}/{i}/B{B}", "library", _two_ways(torch, lib))
+        for tree in order(rnd):
+            build._entries.update(libs[tree])
+            line = {"round": rnd, "tree": tree, "kernels": {}, "card": smi}
+            for kind, i, B, kernel, _ in calls:
+                key = f"{kind}/{i}/B{B}"
+                line["kernels"][key] = _two_ways(torch, kernel)
+                keep(key, tree, line["kernels"][key])
+            print(json.dumps(line), flush=True)
+    serving = {}
+    for rnd in range(SERVE_ROUNDS_PER_ROUND * rounds):
+        for tree in order(rnd):
+            build._entries.update(libs[tree])
+            for system, chip in chips.items():
+                serving.setdefault(system, {}).setdefault(tree, []).append(
+                    _drain(torch, chip_mod, chip))
+    print(json.dumps({"engine_steps_per_s": serving, "card": smi}),
+          flush=True)
+
+    print(json.dumps({
+        "columns": ["device_ms", "host_paced_ms"], "rounds": rounds,
+        "medians": {key: {tree: _median(v) for tree, v in by_tree.items()}
+                    for key, by_tree in table.items()},
+        "engine_steps_per_s_quartiles": {
+            system: {tree: cs._quartiles(v) for tree, v in by_tree.items()}
+            for system, by_tree in serving.items()},
+        "card": smi}), flush=True)
     return 0
 
 

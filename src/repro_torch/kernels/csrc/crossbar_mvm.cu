@@ -42,7 +42,8 @@
 //     core matrices: f32 as its TF32 big and small halves, bf16 rounded.
 //     The weights are small (1.8 MB for layer 0) and come from L2.
 //   * Each warpgroup runs wgmma.m64n64 with A (x) from registers and B
-//     from shared memory:
+//     from shared memory (mma.sync, each warp 32 × 32 with both operands
+//     from registers, measured 17 % slower on layer 0):
 //       f32 x:  3×TF32, k8. Each operand v splits into big = tf32(v) and
 //               small = tf32(v − big), rounded to nearest with ties away
 //               (integer ops on the bits: the same rounding as
@@ -62,7 +63,13 @@
 //     chunk ahead; each chunk's sums are scaled in registers before
 //     they are summed (reduce) or stored (partials), as the reference's
 //     oracle does. Partials leave as 8-byte stores of neighbouring
-//     columns, which fill whole 32-byte sectors.
+//     columns, which fill whole 32-byte sectors; staging them through
+//     shared memory for 16-byte stores measured slower.
+//   * A small batch has too few output tiles to fill the card (B = 4:
+//     four blocks for layer 0, each walking 28 steps). In partials mode
+//     the launcher then gives each row chunk its own block (a grid of R
+//     layers, a kernel instance of its own), as the reference launches
+//     its kernel once per chunk.
 // Ragged batch, rows and columns are masked in the kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -292,7 +299,11 @@ __device__ __forceinline__ void store_pair(float* out, int n, int ncols,
   }
 }
 
-template <bool kBf16, bool kPartials>
+// What a launch computes: reduce mode; partials mode with each block
+// walking every row chunk; partials mode with one row chunk a block.
+enum Mode : int { kReduce, kAllChunks, kOneChunk };
+
+template <bool kBf16, int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
 crossbar_mvm_kernel(const void* __restrict__ x,
                     const float* __restrict__ gp,
@@ -302,8 +313,8 @@ crossbar_mvm_kernel(const void* __restrict__ x,
                     float* __restrict__ out, int B, int R, int C, int rows,
                     int cols, int act, int xbytes, int ovec) {
   using L = Layout<kBf16>;
-  static_assert(kBM * (kBN + 4) * 4 <= kStages * L::kXBytes,
-                "the staged partials tile must fit in the x ring");
+  constexpr bool kPartials = kMode != kReduce;
+  constexpr bool kOne = kMode == kOneChunk;
   extern __shared__ __align__(128) unsigned char smem[];
   auto stage_x = [&](int s) { return smem + s * L::kXBytes; };
   auto stage_w = [&](int s) {
@@ -323,12 +334,13 @@ crossbar_mvm_kernel(const void* __restrict__ x,
   const int b0 = blockIdx.y * kBM;
   const int ncols = C * cols;
   const int ksteps = (rows + kBK - 1) / kBK;
-  // partials mode: one row chunk a block (blockIdx.z), so that a small
-  // batch still spreads over the card; reduce mode sums the chunks, in
-  // order, in one block. The block walks steps s0 .. steps - 1.
-  const int r0 = kPartials ? static_cast<int>(blockIdx.z) : 0;
+  // kOneChunk: block z computes row chunk z alone (steps s0 .. steps -
+  // 1); otherwise the block walks every chunk, in order. An instance of
+  // its own: deciding this at run time in one instance slowed the walk
+  // at B = 16384.
+  const int r0 = kOne ? static_cast<int>(blockIdx.z) : 0;
   const int s0 = r0 * ksteps;
-  const int steps = (kPartials ? r0 + 1 : R) * ksteps;
+  const int steps = kOne ? s0 + ksteps : R * ksteps;
 
   // where this thread's W column starts inside a row chunk's tiles
   int at = -1;
@@ -380,8 +392,7 @@ crossbar_mvm_kernel(const void* __restrict__ x,
     }
     repro_torch::cp_async_commit();
     // chunk r + 1's scales fly while this step computes
-    const float sc_next =
-        s % ksteps == 0 && s + ksteps < steps ? scale_of(r + 1) : 0.f;
+    const float sc_next = !kOne && s % ksteps == 0 ? scale_of(r + 1) : 0.f;
     const bool more = s + 1 < steps;
     if (more) {  // the next step's W flies while this one computes
       load_w<kBf16>(w, gp, gn, at, (s + 1) / ksteps, C, rows, cols,
@@ -389,7 +400,7 @@ crossbar_mvm_kernel(const void* __restrict__ x,
     }
     compute_step<kBf16>(stage_x(j % kStages), stage_w(j % 2), acc, row, t);
     if (more) store_w<kBf16>(w, stage_w((j + 1) % 2));
-    if (s % ksteps == 0 && threadIdx.x < kBN) {
+    if (!kOne && s % ksteps == 0 && threadIdx.x < kBN) {
       sc_s[((r + 1) % 2) * kBN + threadIdx.x] = sc_next;
     }
     if ((s + 1) % ksteps != 0) continue;
@@ -398,6 +409,7 @@ crossbar_mvm_kernel(const void* __restrict__ x,
     // (partials) or add them to the running total (reduce)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
       const float* sc = sc_s + (r % 2) * kBN + 8 * i + 2 * t;
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
@@ -406,11 +418,14 @@ crossbar_mvm_kernel(const void* __restrict__ x,
         const float p1 = __fmul_rn(d[1], sc[1]);
         d[0] = 0.f;
         d[1] = 0.f;
-        float* tt = total + 4 * i + 2 * v;
-        if (kPartials) {  // the block's one chunk, stored below
-          tt[0] = p0;
-          tt[1] = p1;
+        const int b = b0 + row + 8 * v;
+        if (kPartials) {
+          if (b < B) {
+            store_pair(out + (static_cast<long long>(b) * R + r) * ncols + n,
+                       n, ncols, p0, p1, ovec);
+          }
         } else {
+          float* tt = total + 4 * i + 2 * v;
           tt[0] = __fadd_rn(tt[0], p0);
           tt[1] = __fadd_rn(tt[1], p1);
         }
@@ -419,39 +434,7 @@ crossbar_mvm_kernel(const void* __restrict__ x,
   }
   repro_torch::cp_async_wait<0>();
 
-  if (kPartials) {
-    // stage the tile through the x ring, idle now, and write it with
-    // 16-byte stores of four neighbouring columns
-    constexpr int kOS = kBN + 4;   // floats a staged row
-    float* os = reinterpret_cast<float*>(smem);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        *reinterpret_cast<float2*>(os + (row + 8 * v) * kOS + 8 * i +
-                                   2 * t) =
-            make_float2(total[4 * i + 2 * v], total[4 * i + 2 * v + 1]);
-      }
-    __syncthreads();
-    const bool vec4 = ovec && ncols % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    for (int e = threadIdx.x; e < kBM * kBN / 4; e += kThreads) {
-      const int m = e / (kBN / 4);
-      const int q = (e % (kBN / 4)) * 4;
-      const int b = b0 + m;
-      const int n = n0 + q;
-      if (b >= B || n >= ncols) continue;
-      float* dst = out + (static_cast<long long>(b) * R + r0) * ncols + n;
-      const float* src = os + m * kOS + q;
-      if (vec4 && n + 3 < ncols) {
-        *reinterpret_cast<float4*>(dst) =
-            *reinterpret_cast<const float4*>(src);
-      } else {
-        for (int h = 0; h < 4 && n + h < ncols; ++h) dst[h] = src[h];
-      }
-    }
-  } else {
+  if (!kPartials) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int n = n0 + 8 * i + 2 * t;
@@ -473,7 +456,7 @@ crossbar_mvm_kernel(const void* __restrict__ x,
   }
 }
 
-template <bool kBf16, bool kPartials>
+template <bool kBf16, int kMode>
 cudaError_t launch(dim3 grid, cudaStream_t stream, const void* x,
                    const float* gp, const float* gn, const float* scale,
                    const float* bias, float* out, int B, int R, int C,
@@ -481,11 +464,33 @@ cudaError_t launch(dim3 grid, cudaStream_t stream, const void* x,
   constexpr int kSmem = Layout<kBf16>::kSmem;
   static repro_torch::SmemOptIn opt_in;
   const cudaError_t attr =
-      opt_in.allow(crossbar_mvm_kernel<kBf16, kPartials>, kSmem);
+      opt_in.allow(crossbar_mvm_kernel<kBf16, kMode>, kSmem);
   if (attr != cudaSuccess) return attr;
-  crossbar_mvm_kernel<kBf16, kPartials><<<grid, kThreads, kSmem, stream>>>(
+  crossbar_mvm_kernel<kBf16, kMode><<<grid, kThreads, kSmem, stream>>>(
       x, gp, gn, scale, bias, out, B, R, C, rows, cols, act, xbytes, ovec);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_mode(int mode, dim3 grid, cudaStream_t stream,
+                        const void* x, const float* gp, const float* gn,
+                        const float* scale, const float* bias, float* out,
+                        int B, int R, int C, int rows, int cols, int act,
+                        int xbytes, int ovec) {
+  switch (mode) {
+    case kReduce:
+      return launch<kBf16, kReduce>(grid, stream, x, gp, gn, scale, bias,
+                                    out, B, R, C, rows, cols, act, xbytes,
+                                    ovec);
+    case kAllChunks:
+      return launch<kBf16, kAllChunks>(grid, stream, x, gp, gn, scale, bias,
+                                       out, B, R, C, rows, cols, act, xbytes,
+                                       ovec);
+    default:
+      return launch<kBf16, kOneChunk>(grid, stream, x, gp, gn, scale, bias,
+                                      out, B, R, C, rows, cols, act, xbytes,
+                                      ovec);
+  }
 }
 
 // The widest copy (16, 8, 4 bytes; 2 = plain loads) that every x row
@@ -513,8 +518,15 @@ extern "C" int crossbar_mvm_launch(const void* x, int x_bf16,
                                    void* out, int B, int R, int C, int rows,
                                    int cols, int activation, int partials,
                                    void* stream) {
-  const dim3 grid((C * cols + kBN - 1) / kBN, (B + kBM - 1) / kBM,
-                  partials ? R : 1);
+  dim3 grid((C * cols + kBN - 1) / kBN, (B + kBM - 1) / kBM);
+  int mode = partials ? kAllChunks : kReduce;
+  // partials mode: when the output tiles alone would leave SMs idle (a
+  // small batch), each row chunk gets its own block
+  if (partials && R > 1 &&
+      static_cast<int>(grid.x * grid.y) < repro_torch::sm_count()) {
+    mode = kOneChunk;
+    grid.z = R;
+  }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* gpf = static_cast<const float*>(gp);
   const auto* gnf = static_cast<const float*>(gn);
@@ -525,19 +537,10 @@ extern "C" int crossbar_mvm_launch(const void* x, int x_bf16,
   // 8-byte stores of neighbouring columns where every row allows them
   const int ov = (C * cols) % 2 == 0 &&
                  reinterpret_cast<uintptr_t>(out) % 8 == 0;
-  cudaError_t err;
-  if (x_bf16) {
-    err = partials
-        ? launch<true, true>(grid, s, x, gpf, gnf, sf, bf, of, B, R, C, rows,
-                             cols, activation, xb, ov)
-        : launch<true, false>(grid, s, x, gpf, gnf, sf, bf, of, B, R, C,
-                              rows, cols, activation, xb, ov);
-  } else {
-    err = partials
-        ? launch<false, true>(grid, s, x, gpf, gnf, sf, bf, of, B, R, C,
-                              rows, cols, activation, xb, ov)
-        : launch<false, false>(grid, s, x, gpf, gnf, sf, bf, of, B, R, C,
-                               rows, cols, activation, xb, ov);
-  }
+  const cudaError_t err = x_bf16
+      ? launch_mode<true>(mode, grid, s, x, gpf, gnf, sf, bf, of, B, R, C,
+                          rows, cols, activation, xb, ov)
+      : launch_mode<false>(mode, grid, s, x, gpf, gnf, sf, bf, of, B, R, C,
+                           rows, cols, activation, xb, ov);
   return static_cast<int>(err);
 }

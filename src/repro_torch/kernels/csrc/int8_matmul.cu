@@ -25,14 +25,18 @@
 // Design: mma.sync.m16n8k32 takes the uint8 codes against the int8
 // synapses directly (.u8.s8; .s8.s8 for signed x), so nothing is
 // re-centred and the int32 accumulator is exactly the reference's. One
-// block of 16 warps owns 128 batch rows × all N (one column tile of 64
-// or 256; wider N takes several), so each x byte is read from device
-// memory once. It walks K in steps of 64 bytes:
+// block of 16 warps owns 128 batch rows × all N (one column tile of
+// 256; wider N takes several), so each x byte is read from device
+// memory once. The tile is 64 columns instead when N ≤ 64 (a 256-column
+// tile computes 25× the 10 columns of the deep app's last layer) or the
+// batch is one row tile (serving: N = 200 then spreads over four blocks
+// instead of one). It walks K in steps of 64 bytes:
 //   * x through a four-stage cp.async ring. Rows of 200 or 100 bytes
 //     (the deep app's later layers) are not 16-byte aligned, so the
 //     launcher picks the copy width (16, 8 or 4 bytes; plain byte loads
-//     otherwise) from K and the pointer, as a template parameter. The
-//     ragged last step (784 = 12.25 × 64) is zero-filled.
+//     for odd K, as the paper's 9-input apps have) from K and the
+//     pointer, as a template parameter. The ragged last step (784 =
+//     12.25 × 64) is zero-filled.
 //   * w, which is (K, N) N-contiguous, while the 8-bit mma wants its B
 //     operand K-contiguous: each thread reads a 4 (k) × 4 (n) block one
 //     step ahead into registers, transposes it with byte permutes, and
@@ -285,7 +289,7 @@ template <bool kSigned, int kXBytes>
 cudaError_t launch_bn(cudaStream_t stream, const void* x, const int8_t* w,
                       const float* scale, const float* offset, void* out,
                       int B, int K, int N, int act, int fused, int wvec) {
-  if (N <= 64 || B <= kBM) {
+  if (N <= 64 || B <= kBM) {  // see the header: narrow N, one row tile
     return launch<kSigned, kXBytes, 64>(stream, x, w, scale, offset, out, B,
                                         K, N, act, fused, wvec);
   }

@@ -8,6 +8,18 @@
 
 namespace repro_torch {
 
+// The number of SMs of the current device (0 if it cannot be read).
+inline int sm_count() {
+  int dev = 0;
+  int n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return n;
+}
+
 // Lets one kernel use more than 48 KB of dynamic shared memory. The
 // attribute belongs to the device the launch goes to (the current one),
 // so it is set once for each device, not at every launch. Keep one

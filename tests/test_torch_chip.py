@@ -359,7 +359,7 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py"]
     assert len(files) > 20
     bad = []
     for path in files:

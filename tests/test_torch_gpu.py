@@ -120,10 +120,12 @@ def test_gpu_int8_kernels_match_plain(cuda, B, K, N):
 
 
 # edge shapes of the tensor-core kernels: serving batches (1, 4) and a
-# ragged one (37), 32-row crossbars, and 16-column tiles several of
-# which share one 64-column block tile
+# ragged one (37), 32-row crossbars, 16-column tiles several of which
+# share one 64-column block tile, and a ragged batch large enough that
+# partials mode walks all its row chunks in one block (smaller ones
+# give each chunk its own block)
 EDGE_CB = [(1, 1, 1, 128, 64), (4, 2, 2, 128, 64), (37, 2, 5, 32, 16),
-           (4, 3, 2, 32, 16), (37, 7, 4, 128, 64)]
+           (4, 3, 2, 32, 16), (37, 7, 4, 128, 64), (16383, 3, 3, 128, 32)]
 ACTS = ["linear", "threshold", "sigmoid", "relu", "tanh"]
 
 
