@@ -31,7 +31,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and 1; stream items/s of the kernel and einsum paths in
      alternating rounds, with the device's busy time from
      ``torch.profiler``; and engine steps/s, the median of three drains
-     after a warm-up drain.
+     after a warm-up drain;
+  5. variability: the deep app on the memristor system with a noisy,
+     drifting ``NoiseModel`` (write σ, stuck cells, IR drop, drift):
+     8 calls of 16,384 items, three crossbar launches each, checked
+     layer by layer against the einsum path at ages 0, 16,384 and
+     114,688; the drift clock; ``NoiseModel()`` equal to no model on
+     both systems; ``reprogram_chip`` with no compile; the canary
+     recalibration loop back to accuracy 1.0; and the drifting chip's
+     stream times against the ideal chip's;
+  6. paper apps: every app's ``compile_app(...).report()`` and RISC
+     cost against ``tests/golden/fleet_tables.json`` at 1e-9, and every
+     weighted net of the five apps streamed (16,384 items) through the
+     kernels on both systems, checked layer by layer.
+
+The ``kernels`` line counts each kernel's launches on the main path
+(phases 2–3) and in phases 5 and 6.
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -72,6 +87,19 @@ STREAM_ROUNDS = 5      # × (einsum, kernel, kernel, einsum) stream timings
 SERVE_BATCHES = (4, 1)  # kernel times at the engine's batches (slots = 4)
 SERVE_DRAINS = 3       # engine drains timed after one warm-up drain
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock: covers 20 launches
+
+# phase 5: the deep app on non-ideal devices. The drift rate moves the
+# canary's answers past the SLO within one batch of 16,384 items, and
+# the output by far more than rel 1e-3 at the oldest checked age.
+DRIFT_RATE = 1e-7
+NOISE_KW = dict(program_sigma=0.1, stuck_on_frac=0.01, stuck_off_frac=0.01,
+                ir_drop_r_seg=1.0, drift_rate=DRIFT_RATE, seed=0)
+DRIFT_CALLS = 8                 # streamed calls: ages 0 .. 7 × 16,384
+DRIFT_CHECK_CALLS = (0, 1, 7)   # the ages checked against plain
+CANARY_ROWS = 256
+CANARY_SLO = 0.99
+CANARY_STEPS = 4
+REPORT_RTOL = 1e-9      # the golden Tables II–VI pins' own tolerance
 
 
 class SmokeFailure(Exception):
@@ -187,9 +215,10 @@ def phase_kernels(torch, ops, ref, dev) -> int:
 # --------------------------------------------------------------------- #
 # phases 2-3: the main path
 # --------------------------------------------------------------------- #
-def _layerwise_check(torch, tcompile, tq, chip, x, system):
+def _layerwise_check(torch, tcompile, tq, chip, x, system, age=None):
     """Each layer's kernel pre-activation vs the einsum path's on the
-    same input (the einsum path's previous activations); threshold
+    same input (the einsum path's previous activations), at drift
+    ``age`` (an f32 scalar tensor) where the chip drifts; threshold
     units may differ only in the near-zero band. Returns the number of
     such flips and a mask of the rows with none: on those rows the two
     end-to-end streams see identical activations at every layer."""
@@ -198,8 +227,8 @@ def _layerwise_check(torch, tcompile, tq, chip, x, system):
     clear = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     for i, layer in enumerate(chip.plan):
         lin = dataclasses.replace(layer, activation="linear")
-        pre_k = tcompile._apply_stream_layer(lin, h, True)
-        pre_p = tcompile._apply_stream_layer(lin, h, False)
+        pre_k = tcompile._apply_stream_layer(lin, h, True, age)
+        pre_p = tcompile._apply_stream_layer(lin, h, False, age)
         e = _rel(pre_k, pre_p)
         _require(e <= TOL_F32, f"{system} layer {i} pre-activation rel "
                                f"{e:.3g}")
@@ -590,6 +619,284 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
 
 
 # --------------------------------------------------------------------- #
+# phase 5: non-ideal devices
+# --------------------------------------------------------------------- #
+class StandInDeployment:
+    """What the recalibrator drives: one app on one chip, reprogrammed
+    in place through ``reprogram_chip`` (zero compile passes)."""
+
+    def __init__(self, chip_mod, chip, params):
+        self._reprogram = chip_mod.reprogram_chip
+        self.chip = chip
+        self._params = params
+
+    def params(self, app):
+        return self._params
+
+    def reprogram(self, app, params):
+        self.chip = self._reprogram(self.chip, params)
+
+
+def _deltas(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_variability(torch, ops, tcompile, tq, tcl, chip_mod, var, dev,
+                      card):
+    """The deep app on non-ideal memristor devices: a noisy, drifting
+    chip streamed at ages 0 .. (DRIFT_CALLS - 1) × 16,384 through the
+    crossbar kernel, the ideal model's identity, reprogram and the
+    canary recalibration loop. Launch counters reset just before and
+    read just after; the kernel-vs-plain checks come after the read."""
+    spec = tcl.MLPSpec(DEEP, activation="threshold", out_activation="linear")
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    x = torch.rand((STREAM_B, DEEP[0]),
+                   generator=torch.Generator().manual_seed(5)).to(dev)
+    canary = torch.rand((CANARY_ROWS, DEEP[0]),
+                        generator=torch.Generator().manual_seed(6)).numpy()
+    noise = var.NoiseModel(**NOISE_KW)
+    drift_only = var.NoiseModel(drift_rate=DRIFT_RATE, seed=0)
+
+    ops.reset_launch_counts()
+    chip = chip_mod.compile_chip(spec, params=params, noise=noise,
+                                 device=dev)
+    outs, per_call = {}, []
+    for call in range(DRIFT_CALLS):
+        age = chip.items_streamed
+        _require(age == call * STREAM_B, f"drift clock {age} at call {call}")
+        before = ops.launch_counts()
+        out = chip.stream(x)
+        per_call.append(_deltas(ops.launch_counts(), before)["crossbar_mvm"])
+        if call in DRIFT_CHECK_CALLS:
+            outs[age] = out
+    probe_age = chip.items_streamed
+    chip.stream(x, advance_age=False)
+    _require(chip.items_streamed == probe_age == DRIFT_CALLS * STREAM_B,
+             f"a probe moved the clock: {chip.items_streamed}")
+    # the ideal model is the same code path as no model, on both systems
+    identical = {}
+    for system in ("memristor", "digital"):
+        a = chip_mod.compile_chip(spec, params=params, system=system,
+                                  device=dev)
+        b = chip_mod.compile_chip(spec, params=params, system=system,
+                                  noise=var.NoiseModel(), device=dev)
+        identical[system] = bool(torch.equal(a.stream(x), b.stream(x))) \
+            and all(layer.drift is None for layer in b.plan)
+    # reprogram: no compile, the clock back to 0, and on a drift-only
+    # model the re-flashed chip streams the age-0 output again
+    ro = chip_mod.compile_chip(spec, params=params, noise=drift_only,
+                               device=dev)
+    fresh = ro.stream(x, advance_age=False)
+    for _ in range(3):
+        ro.stream(x)
+    aged = ro.stream(x, advance_age=False)
+    c0 = chip_mod.compile_count()
+    re_noisy = chip_mod.reprogram_chip(chip, params)
+    re_drift = chip_mod.reprogram_chip(ro, params)
+    reprogram_delta = chip_mod.compile_count() - c0
+    restored = re_drift.stream(x, advance_age=False)
+    # the canary loop over a stand-in deployment of the drift-only chip
+    # (write noise re-rolls at a reprogram, so only a drift-only chip
+    # can come back to its attach-time answers exactly)
+    dep = StandInDeployment(chip_mod,
+                            chip_mod.compile_chip(spec, params=params,
+                                                  noise=drift_only,
+                                                  device=dev), params)
+    monitor = var.AccuracyMonitor(lambda: dep.chip, canary, name="deep")
+    recal = var.Recalibrator(dep, "deep", monitor,
+                             var.RecalPolicy(slo=CANARY_SLO))
+    c1 = chip_mod.compile_count()
+    monitor.score()
+    for _ in range(CANARY_STEPS):
+        dep.chip.stream(x)
+        monitor.on_step(None)
+        recal.on_step(None)
+    canary_delta = chip_mod.compile_count() - c1
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    _require(per_call == [3] * DRIFT_CALLS,
+             f"drifting stream launches per call {per_call}")
+    _require(all(identical.values()), f"NoiseModel() differs from no model "
+                                      f"{identical}")
+    _require(reprogram_delta == 0 and re_noisy.items_streamed == 0 and
+             re_drift.items_streamed == 0,
+             f"reprogram: compile delta {reprogram_delta}")
+    _require(not torch.equal(aged, fresh), "drift did not move the output")
+    _require(bool(torch.equal(restored, fresh)),
+             "the reprogrammed drift-only chip differs from its age-0 output")
+    accs = monitor.series()["accuracy"]
+    _require(bool(recal.events), f"the canary never breached: {accs}")
+    _require(min(accs) < CANARY_SLO and canary_delta == 0 and
+             all(e.accuracy_after == 1.0 and e.compile_delta == 0
+                 for e in recal.events),
+             f"canary loop: {accs}, compile delta {canary_delta}")
+
+    # kernel vs plain, layer by layer, at each checked age
+    checks = []
+    ages = sorted(outs)
+    for age in ages:
+        age_t = torch.full((), float(age), dtype=torch.float32, device=dev)
+        flips, clear = _layerwise_check(torch, tcompile, tq, chip, x,
+                                        "memristor (drifting)", age_t)
+        plain = tcompile.stream_pipeline(chip.plan, x, use_kernel=False,
+                                         age=age_t)
+        e = _rel(outs[age][clear], plain[clear])
+        _require(e <= TOL_F32, f"drifting stream at age {age}: rel {e:.3g}")
+        _require(bool(torch.isfinite(outs[age]).all()), f"non-finite at "
+                                                        f"age {age}")
+        checks.append({"age": age, "stream_vs_plain_rel": e,
+                       "threshold_flips_in_band": flips,
+                       "rows_compared": int(clear.sum())})
+    moved = _rel(outs[ages[-1]], outs[ages[0]])
+    _require(moved > 1e-3, f"drift moved the output by only rel {moved:.3g} "
+                           f"at age {ages[-1]}")
+    _line({"phase": "variability", "noise": NOISE_KW,
+           "launches_per_stream_call": per_call, "launches": launches,
+           "checks": checks, "tol": TOL_F32,
+           "output_moved_rel_oldest_vs_age0": moved,
+           "noise_model_ideal_equal_to_none": identical,
+           "reprogram_compile_delta": reprogram_delta,
+           "drift_only_reprogram_restores_age0": True,
+           "canary": {"rows": CANARY_ROWS, "slo": CANARY_SLO,
+                      "drift_rate": DRIFT_RATE, "series": monitor.series(),
+                      "recals": len(recal.events),
+                      "accuracy_after": [e.accuracy_after
+                                         for e in recal.events],
+                      "compile_delta": canary_delta},
+           "card": card})
+    return chip, x, launches
+
+
+def phase_variability_times(torch, chip_mod, tcl, drifting, x, dev, card):
+    """The drifting chip's stream against the ideal chip's on the kernel
+    path, in alternating rounds (ideal, drifting, drifting, ideal), and
+    both chips' device busy time."""
+    spec = tcl.MLPSpec(DEEP, activation="threshold", out_activation="linear")
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    chips = {"ideal": chip_mod.compile_chip(spec, params=params, device=dev),
+             "drifting": drifting}
+    times = {k: [] for k in chips}
+    for _ in range(STREAM_ROUNDS):
+        for k in ("ideal", "drifting", "drifting", "ideal"):
+            times[k].append(_time_ms(torch, lambda: chips[k].stream(x),
+                                     iters=10))
+    for k, ms in times.items():
+        med, q1, q3 = _quartiles(ms)
+        _line({"metric": "variability_stream_items_per_s", "chip": k,
+               "system": "memristor", "use_kernel": True, "batch": STREAM_B,
+               "ms_per_batch_median": med, "ms_per_batch_q1": q1,
+               "ms_per_batch_q3": q3, "runs": len(ms),
+               "items_per_s": STREAM_B / med * 1e3,
+               **_device_busy(torch, chips[k], x, True, med), "card": card})
+
+
+# --------------------------------------------------------------------- #
+# phase 6: the paper's five apps
+# --------------------------------------------------------------------- #
+def _close(got, want, path):
+    if isinstance(want, dict):
+        _require(isinstance(got, dict) and set(got) == set(want),
+                 f"{path}: keys")
+        for k in want:
+            _close(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        _require(len(got) == len(want), f"{path}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        # equal covers the infinite rates (a fabric with no mesh link)
+        _require(got == want or
+                 abs(got - want) <= REPORT_RTOL * abs(want) + 1e-12,
+                 f"{path}: {got!r} != {want!r}")
+    else:
+        _require(got == want, f"{path}: {got!r} != {want!r}")
+
+
+def _app_nets(apps, app_id, system):
+    nets = []
+    for _, dims in apps[app_id].nets(system):
+        if tuple(dims) not in nets:
+            nets.append(tuple(dims))
+    return nets
+
+
+def phase_paper_apps(torch, ops, tcompile, tq, tcl, chip_mod, dev, card):
+    """Every app's Tables II–VI report against the golden file, then
+    every weighted net of every app streamed through the kernels on both
+    systems (counters reset just before, read just after), then checked
+    layer by layer against the einsum path."""
+    from repro_torch.configs.paper_apps import APPS
+    from repro_torch.core.costmodel import risc_cost
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "fleet_tables.json")) as f:
+        golden = json.load(f)["apps"]
+    reports = 0
+    for app_id, app in APPS.items():
+        for key, system in (("1t1m", "memristor"), ("digital", "digital")):
+            rep = chip_mod.compile_app(app, system, device=dev).report()
+            _close(rep.to_dict(), golden[app_id][key], f"{app_id}.{key}")
+            reports += 1
+        risc = dataclasses.asdict(risc_cost(app))
+        risc.pop("mapping")
+        risc.pop("route")
+        _close(risc, golden[app_id]["risc"], f"{app_id}.risc")
+        reports += 1
+
+    runs = []
+    ops.reset_launch_counts()
+    for app_id in APPS:
+        for system in ("memristor", "digital"):
+            for k, dims in enumerate(_app_nets(APPS, app_id, system)):
+                spec = tcl.MLPSpec(dims, activation="threshold",
+                                   out_activation="linear")
+                params = tcl.mlp_init(
+                    spec, generator=torch.Generator().manual_seed(10 + k),
+                    device=dev)
+                chip = chip_mod.compile_chip(spec, params=params,
+                                             system=system, device=dev)
+                x = torch.rand((STREAM_B, dims[0]),
+                               generator=torch.Generator().manual_seed(k)
+                               ).to(dev)
+                before = ops.launch_counts()
+                out = chip.stream(x)
+                runs.append((app_id, system, dims, chip, x, out,
+                             _deltas(ops.launch_counts(), before)))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    rows = []
+    for app_id, system, dims, chip, x, out, per_call in runs:
+        key = "crossbar_mvm" if system == "memristor" else \
+            "int8_matmul_fused"
+        _require(per_call[key] == len(dims) - 1,
+                 f"{app_id} {system} {dims}: launches {per_call}")
+        _require(tuple(out.shape) == (STREAM_B, dims[-1]) and
+                 bool(torch.isfinite(out).all()),
+                 f"{app_id} {system} {dims}: output")
+        flips, clear = _layerwise_check(torch, tcompile, tq, chip, x,
+                                        f"{app_id} {system} {dims}")
+        plain = chip.stream(x, use_kernel=False)
+        e = _rel(out[clear], plain[clear])
+        _require(e <= TOL_F32, f"{app_id} {system} {dims}: stream vs "
+                               f"plain rel {e:.3g}")
+        rows.append({"app": app_id, "system": system, "dims": list(dims),
+                     "tiles": [list(layer.tiles.gp.shape[:2])
+                               if system == "memristor" else
+                               list(layer.tiles.wq.shape)
+                               for layer in chip.plan],
+                     "launches": per_call[key], "stream_vs_plain_rel": e,
+                     "threshold_flips_in_band": flips,
+                     "rows_compared": int(clear.sum())})
+    _line({"phase": "paper_apps", "reports_equal_golden": reports,
+           "report_rtol": REPORT_RTOL, "nets": rows, "items": STREAM_B,
+           "launches": launches, "tol": TOL_F32, "card": card})
+    return launches
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -603,6 +910,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         import repro_torch.chip as chip_mod
+        import repro_torch.variability as var
         from repro_torch.chip import compile as tcompile
         from repro_torch.core import crossbar_layer as tcl
         from repro_torch.core import quantization as tq
@@ -634,6 +942,16 @@ def main() -> int:
         kernels, off_path = phase_times(torch, ops, ref, tcompile, tcl,
                                         chip_mod, chips, launches, dev,
                                         card)
+        drifting, x_var, var_launches = phase_variability(
+            torch, ops, tcompile, tq, tcl, chip_mod, var, dev, card)
+        phase_variability_times(torch, chip_mod, tcl, drifting, x_var, dev,
+                                card)
+        app_launches = phase_paper_apps(torch, ops, tcompile, tq, tcl,
+                                        chip_mod, dev, card)
+        # each kernel's launches: the main path's and the new phases'
+        for row in kernels + off_path:
+            row["launches"] += var_launches[row["name"]] + \
+                app_launches[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

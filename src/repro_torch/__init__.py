@@ -2,7 +2,8 @@
 
 The JAX package ``repro`` is the reference; this package has the same
 sub-package layout (``kernels``, ``core``, ``obs``, ``chip``,
-``serving``) so each module has one counterpart there. It imports
+``serving``, ``configs``, ``variability``) so each module has one
+counterpart there. It imports
 ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -3,8 +3,10 @@
 Compiles the paper's deep-app MLP (784→200→100→10) onto 1T1M cores on
 the card (or with ``--device cpu``), checks that the mapped stream
 through the kernels matches the programmed dense einsum path, that the
-TDM schedule is conflict-free, and that the serving engine drains a
-small request burst correctly. Exit code 0 iff all checks pass.
+report agrees with the cost model's Tables II–VI deep-app accounting
+and its power decomposes, that the TDM schedule is conflict-free, and
+that the serving engine drains a small request burst correctly. Exit
+code 0 iff all checks pass.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ def selftest(verbose: bool = True, device=None) -> bool:
     import torch
 
     from repro_torch.chip import ChipRequest, compile_chip
+    from repro_torch.configs.paper_apps import APPS
+    from repro_torch.core.costmodel import specialized_cost
     from repro_torch.core.crossbar_layer import (MLPSpec, mlp_init,
                                                  program_mlp,
                                                  programmed_mlp_apply)
@@ -50,6 +54,17 @@ def selftest(verbose: bool = True, device=None) -> bool:
     check(f"stream ({path} on {dev.type}) matches the programmed dense "
           f"einsum path", rel <= 1e-5, f"max rel {rel:.2e}")
     check("output shape", tuple(y.shape) == (128, 10))
+
+    rep = chip.report()
+    # chip.report must agree with the independent cost-model assembly
+    # of the Tables II–VI rows
+    ref = specialized_cost(APPS["deep"], "memristor")
+    check("report reproduces the Tables II-VI deep-app accounting",
+          rep.cores_per_replica == ref.mapping.cores_per_replica,
+          f"{rep.cores_per_replica} cores/replica")
+    check("report power decomposes", abs(
+        rep.power_mw - (rep.leak_mw + rep.compute_mw + rep.routing_mw +
+                        rep.tsv_mw)) < 1e-9)
 
     # TDM schedule feasibility: no slot overlap on any link
     overlaps = 0

@@ -11,15 +11,18 @@ runs that whole pipeline and returns a :class:`CompiledChip`:
                      layer, in partials mode), programmed combiner
                      neurons (Fig. 11), replica fan-out; or one int8
                      MAC-kernel launch per layer on the digital system.
+  chip.report()    — the Tables II–VI area/power/throughput accounting.
   chip.serve(...)  — a slot-scheduled streaming engine over the chip.
 
-``chip.report()`` (the Tables II–VI accounting) comes with the
-cost-model slice of the port; the variability hooks (``noise=``,
-``noise_key=``) with the variability slice.
+``reprogram_chip`` swaps a chip's weights without re-mapping or
+re-routing; ``compile_app`` compiles one of the paper's apps at its
+real-time load (an analytic chip whose report is its table row).
 
 The chip's programmed state (tiles, fold scales, combiner neurons,
-biases) is tensors on one device; its mapping and route are plain
-attributes. Streaming never re-programs tile state.
+biases, drift rates) is tensors on one device; its mapping and route
+are plain attributes, and the drift clock (items streamed since the
+last programming event) is a host-side integer. Streaming never
+re-programs tile state.
 
 Functional tile layout vs the packer's row balancing: both split a
 layer with ``fan_in > geom.rows`` into ``ceil(fan_in / geom.rows)`` row
@@ -35,7 +38,7 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -78,12 +81,18 @@ class StreamLayer:
     neurons are *real programmed neurons* (encoded through the same
     differential-pair + fold pipeline as any weight). ``levels`` gives
     each combine level's (groups, fan_in) shape; empty when the layer
-    fits the core rows."""
+    fits the core rows.
+
+    ``drift`` (crossbar layers under a drifting NoiseModel only) holds
+    the per-cell conductance relaxation rates, shaped like the tiles;
+    streaming applies ``exp(-drift · age)`` to the tile grid. None
+    everywhere else — the plan is then exactly the ideal one."""
     tiles: Union[CrossbarParams, DigitalParams]
     combine: Tuple[torch.Tensor, ...]        # (fan_in,) f32 per level
     bias: torch.Tensor                       # (d_out,) f32
     activation: str
     levels: Tuple[Tuple[int, int], ...]
+    drift: Optional[torch.Tensor] = None     # per-cell rates | None
 
 
 def _combiner_levels(n_chunks: int, geom: CoreGeometry,
@@ -117,19 +126,30 @@ def _combiner_levels(n_chunks: int, geom: CoreGeometry,
 
 
 def _layer_plan(lp, bias: torch.Tensor, activation: str,
-                device_model: DeviceModel) -> StreamLayer:
+                device_model: DeviceModel, *, noise=None,
+                layer: int = 0) -> StreamLayer:
     bias = bias.to(torch.float32)
     if isinstance(lp, CrossbarParams):
         R = lp.gp.shape[0]
         geom = CoreGeometry(lp.geom_rows, lp.geom_cols)
         combine, levels = _combiner_levels(
             R, geom, device_model, lp.gp.device) if R > 1 else ((), ())
-        return StreamLayer(lp, combine, bias, activation, levels)
+        drift = None
+        if noise is not None and noise.has_drift:
+            # per-cell relaxation rates (epoch-independent: retention is
+            # a device property). Combiner neurons are left ideal: their
+            # all-ones encodings drift uniformly, a common positive
+            # factor the activations ignore.
+            drift = noise.drift_field(tuple(lp.gp.shape), layer=layer,
+                                      device=lp.gp.device)
+        return StreamLayer(lp, combine, bias, activation, levels, drift)
     return StreamLayer(lp, (), bias, activation, ())
 
 
 def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
-                       use_kernel: bool) -> torch.Tensor:
+                       use_kernel: bool,
+                       decay: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Sub-neuron stage: per-row-chunk partial dot products.
 
     x (B, d_in) → (B, R, d_out). The same tile arithmetic as
@@ -137,7 +157,14 @@ def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
     NOT folded into the contraction — the partials feed the programmed
     combiner stage, which is the mapped dataflow. ``use_kernel`` runs
     the crossbar kernel once, in partials mode, for all R chunks; else
-    the reference's einsum with ``scale`` folded into the weights."""
+    the reference's einsum with ``scale`` folded into the weights.
+
+    ``decay`` (temporal drift) relaxes both pair devices with the cell's
+    own factor before either path; the program-time fold ``scale`` is
+    frozen physical state, so the decay is an uncorrected error — the
+    accuracy loss closed-loop recalibration exists to repair."""
+    if decay is not None:
+        p = dataclasses.replace(p, gp=p.gp * decay, gn=p.gn * decay)
     R = p.gp.shape[0]
     cdtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     xt = tile_inputs(p, x.to(cdtype))
@@ -152,12 +179,17 @@ def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
 
 
 def _apply_stream_layer(layer: StreamLayer, x: torch.Tensor,
-                        use_kernel: bool) -> torch.Tensor:
+                        use_kernel: bool,
+                        age: Optional[torch.Tensor] = None) -> torch.Tensor:
     if isinstance(layer.tiles, DigitalParams):
         return digital_apply(layer.tiles, x, bias=layer.bias,
                              activation=layer.activation,
                              use_kernel=use_kernel)
-    parts = _crossbar_partials(layer.tiles, x, use_kernel)     # (B, R, d)
+    decay = None
+    if layer.drift is not None and age is not None:
+        decay = torch.exp(-layer.drift * age)
+    parts = _crossbar_partials(layer.tiles, x, use_kernel,
+                               decay)                          # (B, R, d)
     for w, (groups, fan_in) in zip(layer.combine, layer.levels):
         B, K, d = parts.shape
         pad = groups * fan_in - K
@@ -173,17 +205,23 @@ def _apply_stream_layer(layer: StreamLayer, x: torch.Tensor,
 
 def stream_pipeline(plan: Tuple[StreamLayer, ...], x: torch.Tensor,
                     use_kernel: bool = True,
-                    replication: int = 1) -> torch.Tensor:
+                    replication: int = 1,
+                    age: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stage-ordered evaluation of the whole mapped pipeline, with
     replica fan-out: the batch is dealt across the ``replication``
     identical pipeline copies (§V.C), each streaming its shard through
     the same programmed image. The reference vmaps over the replica
     axis; here that axis is written out and folded into the batch, so
-    all replicas' shards go through one kernel launch per layer."""
+    all replicas' shards go through one kernel launch per layer.
+
+    ``age`` (an f32 scalar tensor on the plan's device: items streamed
+    since programming) activates the per-cell drift decay on layers
+    that carry a ``drift`` field. Every item of the call, on every
+    replica, sees the batch's entry age."""
     def replica(xb):
         h = xb
         for layer in plan:
-            h = _apply_stream_layer(layer, h, use_kernel)
+            h = _apply_stream_layer(layer, h, use_kernel, age)
         return h
 
     B = x.shape[0]
@@ -212,9 +250,19 @@ class CompiledChip:
     mapping: Mapping
     route: routing_lib.RouteReport
     items_per_second: float             # target rate (0 → best effort)
+    tsv_bits_per_item: Optional[float]
     plan: Optional[Tuple[StreamLayer, ...]]   # None → analytic-only
     device: torch.device
     dims: Optional[Tuple[int, ...]] = None
+    # how the plan was encoded (weight_bits/device_model/r_seg) — what
+    # reprogram_chip must reuse for a weights-ONLY swap to hold
+    program_kw: Optional[dict] = None
+    # the variability model the chip was compiled under (None = ideal
+    # devices); the drift clock lives in __dict__, host-side
+    noise: Optional[Any] = None
+    # did THIS compile validate items_per_second against the routed TDM
+    # schedule?
+    rate_validated: bool = False
 
     @property
     def replication(self) -> int:
@@ -224,29 +272,61 @@ class CompiledChip:
     def total_cores(self) -> int:
         return self.mapping.total_cores
 
+    # -------- drift age (host-side mutable state) ---------------- #
+    @property
+    def items_streamed(self) -> int:
+        """Items streamed since the last programming event — the drift
+        clock. Always 0 for chips without a drifting noise model."""
+        return self.__dict__.get("_items_streamed", 0)
+
+    @property
+    def has_drift(self) -> bool:
+        return self.noise is not None and self.noise.has_drift
+
+    def reset_age(self) -> None:
+        """Reset the drift clock, as a (re)programming event does."""
+        self.__dict__["_items_streamed"] = 0
+
+    def advance_age(self, items: int) -> None:
+        """Advance the drift clock by ``items`` streamed elsewhere."""
+        if self.has_drift:
+            self.__dict__["_items_streamed"] = \
+                self.items_streamed + int(items)
+
     def stream(self, x, *, use_kernel: bool = True,
-               fan_out: bool = True) -> torch.Tensor:
+               fan_out: bool = True,
+               advance_age: bool = True) -> torch.Tensor:
         """Stream a batch through the mapped, programmed pipeline.
 
         x: (..., d_in) tensor or array → (..., d_out) on the chip's
         device. ``use_kernel`` (the default) runs the hand-written
         kernels on a CUDA chip and their plain versions on a CPU chip;
         ``use_kernel=False`` runs the reference's einsum path.
-        ``fan_out=False`` pins the whole batch onto one replica."""
+        ``fan_out=False`` pins the whole batch onto one replica. Under
+        a drifting noise model the call evaluates at the chip's current
+        age and then advances the drift clock by the batch size;
+        ``advance_age=False`` makes it a pure probe."""
         if self.plan is None:
             raise ValueError(
                 "this chip was compiled from bare network shapes "
-                "(no weights), so it is analytic-only: stream() and "
-                "serve() need programmed state. Re-compile with "
-                "compile_chip(spec, params=...) or from a ProgrammedMLP.")
+                "(no weights), so it is analytic-only: report() works, "
+                "but stream() and serve() need programmed state. "
+                "Re-compile with compile_chip(spec, params=...) or "
+                "from a ProgrammedMLP.")
         x = torch.as_tensor(x, device=self.device)
         lead = x.shape[:-1]
         xf = x.reshape(-1, x.shape[-1])
         rep = self.mapping.replication if fan_out else 1
+        age = None
+        if self.has_drift:
+            # the reference's f32 age (it rounds past 2**24 items),
+            # filled on the device: no host-to-device copy
+            age = torch.full((), float(self.items_streamed),
+                             dtype=torch.float32, device=self.device)
         tel = _obs_current()
         if not tel.active:
             out = stream_pipeline(self.plan, xf, use_kernel=use_kernel,
-                                  replication=rep)
+                                  replication=rep, age=age)
         else:
             # program-vs-stream economics, measured: the stream span
             # carries the compile_count delta (a stream must never
@@ -254,7 +334,7 @@ class CompiledChip:
             t0 = time.perf_counter()
             c0 = _COMPILE_COUNT
             out = stream_pipeline(self.plan, xf, use_kernel=use_kernel,
-                                  replication=rep)
+                                  replication=rep, age=age)
             if out.device.type == "cuda":
                 torch.cuda.synchronize(out.device)
             dur = time.perf_counter() - t0
@@ -265,14 +345,17 @@ class CompiledChip:
             tel.metrics.counter("chip.items_streamed").inc(
                 int(xf.shape[0]))
             tel.metrics.histogram("chip.stream_s").record(dur)
+        if age is not None and advance_age:
+            self.advance_age(xf.shape[0])
         return out.reshape(*lead, out.shape[-1]).to(x.dtype)
 
     def __call__(self, x, **kw) -> torch.Tensor:
         return self.stream(x, **kw)
 
     def report(self):
-        """Tables II–VI accounting: not ported yet."""
-        raise NotImplementedError("cost-model slice")
+        """Unified area/power/throughput accounting (Tables II–VI)."""
+        from repro_torch.chip.report import chip_report
+        return chip_report(self)
 
     def serve(self, *, slots: int = 4, **kw):
         """A :class:`repro_torch.chip.ChipEngine` over this chip."""
@@ -292,27 +375,30 @@ class ChipRateWarning(UserWarning):
 
 
 def _validate_rate(items_per_second: float, replicas: int,
-                   route: routing_lib.RouteReport) -> None:
+                   route: routing_lib.RouteReport, strict: bool) -> None:
     """items_per_second sizes the replica fan-out against COMPUTE
     capacity (§V.C), but each replica's mesh is also a static TDM
     network whose busiest link forwards LINK_BITS per cycle. Warn
-    (:class:`ChipRateWarning`) when the per-replica rate exceeds what
-    the routed schedule can carry."""
+    (:class:`ChipRateWarning`), or raise ``ValueError`` when
+    ``strict``, when the per-replica rate exceeds what the routed
+    schedule can carry."""
     if not items_per_second:
         return
     per_replica = items_per_second / replicas
     limit = route.max_items_per_second
     if per_replica <= limit * (1.0 + 1e-9):
         return
+    msg = (f"compile_chip: items_per_second={items_per_second:g} is "
+           f"infeasible on the routed fabric: each of the {replicas} "
+           f"replica(s) must stream {per_replica:g} items/s, but the "
+           f"busiest mesh link's TDM frame is {route.schedule_cycles} "
+           f"cycles/item, capping a replica at {limit:g} items/s. Use a "
+           f"larger core geometry (fewer row chunks -> less mesh "
+           f"traffic) or lower the target rate.")
+    if strict:
+        raise ValueError(msg)
     # stacklevel: here → compile_chip → its caller
-    warnings.warn(
-        f"compile_chip: items_per_second={items_per_second:g} is "
-        f"infeasible on the routed fabric: each of the {replicas} "
-        f"replica(s) must stream {per_replica:g} items/s, but the "
-        f"busiest mesh link's TDM frame is {route.schedule_cycles} "
-        f"cycles/item, capping a replica at {limit:g} items/s. Use a "
-        f"larger core geometry (fewer row chunks -> less mesh traffic) "
-        f"or lower the target rate.", ChipRateWarning, stacklevel=3)
+    warnings.warn(msg, ChipRateWarning, stacklevel=3)
 
 
 def _spec_dims(prog: ProgrammedMLP) -> Tuple[int, ...]:
@@ -338,11 +424,14 @@ def compile_chip(networks: NetworksLike, *,
                  items_per_second: float = 0.0,
                  weight_bits: int = 8,
                  device_model: DeviceModel = DEFAULT_DEVICE,
+                 noise_key: Optional[torch.Generator] = None,
                  r_seg: float = 0.0,
                  noise=None,
-                 noise_key=None,
                  sensor_flags: Optional[Sequence[bool]] = None,
                  deps: Optional[Sequence[Sequence[int]]] = None,
+                 tsv_bits_per_item: Optional[float] = None,
+                 strict_rate: bool = False,
+                 validate_rate: bool = True,
                  device: DeviceLike = None) -> CompiledChip:
     """Compile networks onto a chip: split → pack → place → route, then
     program every mapped layer's tile state on ``device`` (default
@@ -355,14 +444,24 @@ def compile_chip(networks: NetworksLike, *,
       * a :class:`ProgrammedMLP` — re-uses its programmed tile state
         (no re-encoding) on the device it lives on;
       * a ``(instances, dims)`` net tuple or a sequence of them —
-        analytic-only.
+        analytic-only (report and sizing, no stream).
 
     ``system`` is ``"memristor"`` (1T1M crossbar cores) or
     ``"digital"`` (SRAM cores); ``items_per_second`` sizes the replica
     fan-out (§V.C) and is validated against the routed TDM link
-    capacity (a :class:`ChipRateWarning` when it cannot be carried)."""
-    if noise is not None or noise_key is not None:
-        raise NotImplementedError("variability slice")
+    capacity: an un-routable rate warns (:class:`ChipRateWarning`) or,
+    with ``strict_rate=True``, raises; ``validate_rate=False`` skips
+    the check (recorded in ``rate_validated``). ``tsv_bits_per_item``
+    overrides the report's mapping-derived sensor traffic.
+
+    ``noise`` (a :class:`repro_torch.variability.NoiseModel`) compiles
+    the chip onto non-ideal devices: programming-time effects perturb
+    the encoding when this compile runs the encoder (MLPSpec +
+    params), and temporal drift attaches per-cell relaxation rates the
+    stream evaluates against the chip's age. An ideal model runs the
+    same code path as ``noise=None``. ``noise_key`` (a
+    ``torch.Generator``) adds the feedback-write residual. Digital
+    (SRAM) systems ignore both."""
     system = normalize_system(system, context="compile_chip")
     mode = system_mode(system)
     global _COMPILE_COUNT
@@ -371,6 +470,7 @@ def compile_chip(networks: NetworksLike, *,
 
     prog: Optional[ProgrammedMLP] = None
     dims: Optional[Tuple[int, ...]] = None
+    encoded_here = False                # did THIS compile run the encoder?
     if isinstance(networks, ProgrammedMLP):
         prog = networks
         if (prog.mode == "crossbar") != (system == "memristor"):
@@ -391,12 +491,14 @@ def compile_chip(networks: NetworksLike, *,
         dims = tuple(networks.dims)
         nets = ((1, dims),)
         if params is not None:
-            params = [{k: p[k].to(dev) for k in ("w", "b")}
-                      for p in params]
-            prog = program_mlp(params, networks, mode=mode,
+            prog = program_mlp(_params_on(params, dev), networks,
+                               mode=mode,
                                geom=geom or _default_geom(system),
                                device_model=device_model,
-                               weight_bits=weight_bits, r_seg=r_seg)
+                               weight_bits=weight_bits,
+                               noise_key=noise_key, r_seg=r_seg,
+                               noise=noise, noise_epoch=0)
+            encoded_here = True
     else:
         dev = resolve_device(device)
         if params is not None:
@@ -413,13 +515,22 @@ def compile_chip(networks: NetworksLike, *,
                            items_per_second=items_per_second,
                            sensor_flags=sensor_flags, deps=deps)
     route = routing_lib.route(mapping)
-    _validate_rate(items_per_second, mapping.replication, route)
+    if validate_rate:
+        _validate_rate(items_per_second, mapping.replication, route,
+                       strict_rate)
 
     plan: Optional[Tuple[StreamLayer, ...]] = None
     if prog is not None:
-        plan = program_plan(prog, device_model=device_model)
+        plan = program_plan(prog, device_model=device_model, noise=noise)
+    # encoding knobs recorded only when this compile ran the encoder —
+    # for a caller-programmed MLP they describe nothing (reprogram_chip
+    # then demands them explicitly instead of guessing)
+    program_kw = dict(weight_bits=weight_bits, device_model=device_model,
+                      r_seg=r_seg) if encoded_here else None
     chip = CompiledChip(system, mapping.geom, mapping, route,
-                        items_per_second, plan, dev, dims)
+                        items_per_second, tsv_bits_per_item, plan, dev,
+                        dims, program_kw, noise,
+                        rate_validated=bool(validate_rate))
     tel = _obs_current()
     if tel.active:
         dur = time.perf_counter() - t_compile0
@@ -434,12 +545,143 @@ def compile_chip(networks: NetworksLike, *,
     return chip
 
 
+def _params_on(params, dev: torch.device):
+    return [{k: p[k].to(dev) for k in ("w", "b")} for p in params]
+
+
 def program_plan(prog: ProgrammedMLP, *,
-                 device_model: DeviceModel = DEFAULT_DEVICE
-                 ) -> Tuple[StreamLayer, ...]:
+                 device_model: DeviceModel = DEFAULT_DEVICE,
+                 noise=None) -> Tuple[StreamLayer, ...]:
     """The programming half of a compile, alone: turn an already
     programmed MLP into the streamable per-layer plan (tiles + Fig. 11
-    combiner neurons)."""
-    return tuple(_layer_plan(lp, b, act, device_model)
-                 for lp, b, act in zip(prog.layers, prog.biases,
-                                       prog.activations))
+    combiner neurons). ``compile_chip`` calls this after map+route;
+    :func:`reprogram_chip` calls it INSTEAD of them. ``noise`` attaches
+    per-cell drift rates to crossbar layers when the model drifts
+    (programming-time effects belong to ``program_mlp``)."""
+    return tuple(_layer_plan(lp, b, act, device_model, noise=noise,
+                             layer=i)
+                 for i, (lp, b, act) in
+                 enumerate(zip(prog.layers, prog.biases,
+                               prog.activations)))
+
+
+_KEEP_NOISE = object()     # sentinel: "reuse the chip's own model"
+
+
+def reprogram_chip(chip: CompiledChip, params, *,
+                   spec: Optional[MLPSpec] = None,
+                   weight_bits: Optional[int] = None,
+                   device_model: Optional[DeviceModel] = None,
+                   noise_key: Optional[torch.Generator] = None,
+                   r_seg: Optional[float] = None,
+                   noise=_KEEP_NOISE) -> CompiledChip:
+    """Swap a compiled chip's weights WITHOUT recompiling the fabric.
+
+    The mapping, placement and routed TDM schedule are functions of the
+    network *shape* only, so new weights for the same topology need
+    only re-encoding into tile state (``program_mlp`` +
+    :func:`program_plan`) — map_networks/route never run, asserted by
+    :func:`compile_count` staying put.
+
+    The returned chip shares the original's mapping/route objects and
+    device; only ``plan`` is new. ``spec`` defaults to the chip's own
+    dims and per-layer activations, and ``weight_bits``/
+    ``device_model``/``r_seg`` to the values the chip was COMPILED with
+    (``noise_key`` is per-programming-event, so it never defaults to
+    the old one).
+
+    The chip's variability model carries over by default (pass
+    ``noise=`` to change it, including ``None`` to go ideal). A
+    reprogram is a new programming *epoch*: write noise re-rolls,
+    stuck cells persist, and the drift clock resets to age 0."""
+    if chip.plan is None:
+        raise ValueError(
+            "reprogram_chip: this chip is analytic-only (compiled "
+            "without weights) — there is no programmed state to swap; "
+            "compile_chip(spec, params=...) first")
+    if chip.program_kw is None and \
+            (weight_bits is None or device_model is None or r_seg is None):
+        # the chip was compiled from an externally-programmed MLP, so
+        # how its tiles were encoded is unknown — guessing defaults
+        # would silently change the tenant's quantization
+        raise ValueError(
+            "reprogram_chip: this chip was compiled from a "
+            "pre-programmed MLP, so its original encoding parameters "
+            "are not recorded — pass weight_bits, device_model and "
+            "r_seg explicitly to guarantee the swap re-encodes the same "
+            "way")
+    compiled_kw = chip.program_kw or {}
+    if weight_bits is None:
+        weight_bits = compiled_kw["weight_bits"]
+    if device_model is None:
+        device_model = compiled_kw["device_model"]
+    if r_seg is None:
+        r_seg = compiled_kw["r_seg"]
+    explicit_spec = spec
+    if spec is None:
+        spec = MLPSpec(chip.dims,
+                       activation=chip.plan[0].activation,
+                       out_activation=chip.plan[-1].activation)
+    if tuple(spec.dims) != tuple(chip.dims):
+        raise ValueError(
+            f"reprogram_chip: new network dims {tuple(spec.dims)} do "
+            f"not match the compiled fabric {tuple(chip.dims)} — a "
+            f"different topology re-maps and re-routes; use "
+            f"compile_chip")
+    if len(params) != len(chip.dims) - 1:
+        raise ValueError(
+            f"reprogram_chip: {len(params)} weight layer(s) do not "
+            f"match the compiled fabric's {len(chip.dims) - 1}")
+    for i, p in enumerate(params):
+        want = (chip.dims[i], chip.dims[i + 1])
+        if tuple(p["w"].shape) != want:
+            raise ValueError(
+                f"reprogram_chip: layer {i} weights {tuple(p['w'].shape)}"
+                f" do not match the compiled fabric {want}")
+    if noise is _KEEP_NOISE:
+        noise = chip.noise
+    epoch = chip.__dict__.get("_noise_epoch", 0) + 1
+    prog = program_mlp(_params_on(params, chip.device), spec,
+                       mode=system_mode(chip.system), geom=chip.geom,
+                       device_model=device_model, weight_bits=weight_bits,
+                       noise_key=noise_key, r_seg=r_seg, noise=noise,
+                       noise_epoch=epoch)
+    if explicit_spec is None:
+        # tile programming is activation-independent, but the plan
+        # records one activation PER layer — keep the compiled chip's
+        # own schedule rather than the MLPSpec reconstruction
+        prog = dataclasses.replace(
+            prog, activations=tuple(lay.activation for lay in chip.plan))
+    new = dataclasses.replace(chip,
+                              plan=program_plan(prog,
+                                                device_model=device_model,
+                                                noise=noise),
+                              noise=noise)
+    # fresh object → fresh __dict__: the drift clock starts at age 0;
+    # remember the epoch so the NEXT reprogram re-rolls write noise
+    new.__dict__["_noise_epoch"] = epoch
+    tel = _obs_current()
+    if tel.active:
+        tel.tracer.instant(
+            "chip.reprogram", cat="chip",
+            args={"system": chip.system, "epoch": epoch,
+                  "compile_count": _COMPILE_COUNT})
+        tel.metrics.counter("chip.reprograms").inc()
+    return new
+
+
+def compile_app(app, system: str, *,
+                geom: Optional[CoreGeometry] = None,
+                device: DeviceLike = None) -> CompiledChip:
+    """Compile one of the paper's applications (a
+    ``repro_torch.configs.paper_apps.AppConfig``, duck-typed) at its
+    real-time load: the analytic chip whose ``report()`` is the app's
+    Tables II–VI row for ``system``."""
+    system = normalize_system(system, context="compile_app")
+    nets = app.memristor_nets if system == "memristor" else app.sram_nets
+    return compile_chip(nets, system=system, geom=geom,
+                        items_per_second=app.items_per_second,
+                        sensor_flags=app.sensor_flags(system),
+                        deps=app.net_deps(system),
+                        tsv_bits_per_item=app.tsv_bits_per_item,
+                        device=device)

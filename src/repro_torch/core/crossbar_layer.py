@@ -1,14 +1,15 @@
 """Program-once / stream-many execution of linear layers.
 
-Port of ``repro.core.crossbar_layer`` (noise-free programming; the
-variability slice adds the noise hooks). The paper's split (§III.D:
+Port of ``repro.core.crossbar_layer``. The paper's split (§III.D:
 train off-chip → program once → stream inference) is structural:
 
   PROGRAM (slow, once per deployment)
     program_layer     — tile a float (d_in × d_out) weight matrix into
                         crossbar-geometry tiles, differential-encode
                         each tile as (σ⁺, σ⁻) conductances (quantized,
-                        optionally wire-attenuated), and fold *every*
+                        optionally perturbed by programming noise and a
+                        ``NoiseModel``, optionally wire-attenuated), and
+                        fold *every*
                         input-independent factor — Eq. 3's divider
                         Σ(σ⁺+σ⁻), the per-tile weight descale and the
                         wire-attenuation correction — into ONE
@@ -72,14 +73,24 @@ class CrossbarParams:
 
 def program_layer(w: torch.Tensor, *, geom: CoreGeometry = MEMRISTOR_GEOM,
                   device_model: DeviceModel = DEFAULT_DEVICE,
-                  quantize: bool = True, r_seg: float = 0.0,
-                  noise=None, noise_key=None) -> CrossbarParams:
-    """Tile + differential-encode, then fold all input-independent
-    scales. w: (d_in, d_out) float, on the device the state should live
-    on. Wire resistance (``r_seg`` > 0) is a program-time transform of
-    the conductances, so it is folded here."""
-    if noise is not None or noise_key is not None:
-        raise NotImplementedError("variability slice")
+                  quantize: bool = True,
+                  noise_key: Optional[torch.Generator] = None,
+                  noise_tol: float = 1.0 / 256.0, r_seg: float = 0.0,
+                  noise=None, noise_layer: int = 0,
+                  noise_epoch: int = 0) -> CrossbarParams:
+    """Tile + differential-encode + (optionally) perturb like the
+    feedback-write residual, then fold all input-independent scales.
+    w: (d_in, d_out) float, on the device the state should live on.
+    Wire resistance (``r_seg`` > 0) is a program-time transform of the
+    conductances, so it is folded here.
+
+    ``noise_key`` (a ``torch.Generator``) adds the feedback-write
+    residual, uniform within ±``noise_tol``, σ⁺'s draws before σ⁻'s.
+    ``noise`` (a ``repro_torch.variability.NoiseModel``, duck-typed)
+    applies lognormal write error (re-rolled per ``noise_epoch``),
+    persistent stuck cells and IR-drop attenuation; an ideal model is
+    skipped entirely. Temporal drift is a stream-time effect
+    (``repro_torch.chip.compile.stream_pipeline``)."""
     w = w.to(torch.float32)
     d_in, d_out = w.shape
     R = math.ceil(d_in / geom.rows)
@@ -88,8 +99,27 @@ def program_layer(w: torch.Tensor, *, geom: CoreGeometry = MEMRISTOR_GEOM,
     tiles = wp.reshape(R, geom.rows, C, geom.cols).permute(0, 2, 1, 3)
     gp, gn, amax = pairs_from_weights(tiles, device_model, quantize)
     # descale from the *intended* state (the chip's downstream scales
-    # are fixed at program time)
+    # are fixed at program time; the noise residual is the accuracy
+    # cost the paper's tolerance bound accepts)
     descale = amax[..., 0] * column_gain(gp, gn) / device_model.g_range
+    if noise_key is not None:
+        from repro_torch.core.programming import (ProgrammingConfig,
+                                                  programming_noise)
+        cfg = ProgrammingConfig(tol_frac=noise_tol,
+                                device_model=device_model)
+        gp = device_model.clip(
+            gp + programming_noise(noise_key, gp.shape, cfg).to(w.device))
+        gn = device_model.clip(
+            gn + programming_noise(noise_key, gn.shape, cfg).to(w.device))
+    if noise is not None and not noise.is_ideal:
+        gp, gn = noise.perturb(gp, gn, device_model, layer=noise_layer,
+                               epoch=noise_epoch)
+        if noise.ir_drop_r_seg:
+            att = wire_attenuation(geom.rows, geom.cols,
+                                   float(device_model.g_on),
+                                   noise.ir_drop_r_seg, device=w.device)
+            gp = gp * att
+            gn = gn * att
     if r_seg:
         att = wire_attenuation(geom.rows, geom.cols,
                                float(device_model.g_on), r_seg,
@@ -322,12 +352,15 @@ class ProgrammedMLP:
 def program_mlp(params, spec: MLPSpec, *, mode: str = "crossbar",
                 geom: CoreGeometry = MEMRISTOR_GEOM,
                 device_model: DeviceModel = DEFAULT_DEVICE,
-                weight_bits: int = 8, r_seg: float = 0.0,
-                noise=None, noise_key=None) -> ProgrammedMLP:
+                weight_bits: int = 8,
+                noise_key: Optional[torch.Generator] = None,
+                r_seg: float = 0.0,
+                noise=None, noise_epoch: int = 0) -> ProgrammedMLP:
     """Program every layer of the MLP once (crossbar or SRAM mode), on
-    the device the params live on."""
-    if noise is not None or noise_key is not None:
-        raise NotImplementedError("variability slice")
+    the device the params live on. ``noise_key``/``noise``/
+    ``noise_epoch`` thread the variability model into each crossbar
+    layer's programming, layer by layer from the one generator; digital
+    mode ignores them (SRAM writes are noise-free in this model)."""
     if mode not in ("crossbar", "digital"):
         raise ValueError(f"program_mlp: unknown mode {mode!r}")
     n = len(params)
@@ -336,7 +369,9 @@ def program_mlp(params, spec: MLPSpec, *, mode: str = "crossbar",
         if mode == "crossbar":
             layers.append(program_layer(p["w"], geom=geom,
                                         device_model=device_model,
-                                        r_seg=r_seg))
+                                        noise_key=noise_key, r_seg=r_seg,
+                                        noise=noise, noise_layer=i,
+                                        noise_epoch=noise_epoch))
         else:
             layers.append(program_digital(p["w"], bits=weight_bits))
         biases.append(p["b"].to(torch.float32))

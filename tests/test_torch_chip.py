@@ -36,6 +36,7 @@ from repro_torch.core import crossbar_layer as tcl
 from repro_torch.core import quantization as tq
 from repro_torch.core.neural_core import CoreGeometry as TGeom
 from repro_torch.kernels import ops
+from repro_torch.variability import NoiseModel as TNoise
 
 torch.set_num_threads(1)
 
@@ -307,16 +308,26 @@ def test_dense_kernel_path_matches_mapped_stream():
 
 
 def test_analytic_chip_and_unported_verbs_raise():
+    """An analytic-only chip still refuses stream() and serve(); its
+    report() (the cost-model slice) equals the reference's, and a chip
+    compiles with an ideal NoiseModel (the variability slice) to the
+    same stream as with none."""
     chip = compile_chip((1, (8, 4)), device="cpu")
     assert chip.plan is None
     with pytest.raises(ValueError, match="analytic-only"):
         chip.stream(torch.zeros((1, 8)))
     with pytest.raises(ValueError, match="analytic-only"):
         chip.serve()
-    with pytest.raises(NotImplementedError, match="cost-model slice"):
-        chip.report()
-    with pytest.raises(NotImplementedError, match="variability slice"):
-        compile_chip(tcl.MLPSpec((8, 4)), noise=object(), device="cpu")
+    jrep = jchip.compile_chip((1, (8, 4))).report().to_dict()
+    assert chip.report().to_dict() == jrep
+    spec = tcl.MLPSpec((8, 4))
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    ideal = compile_chip(spec, params=params, device="cpu")
+    noisy = compile_chip(spec, params=params, noise=TNoise(), device="cpu")
+    assert noisy.noise == TNoise() and not noisy.has_drift
+    x = torch.rand((3, 8), generator=torch.Generator().manual_seed(1))
+    assert torch.equal(noisy.stream(x), ideal.stream(x))
 
 
 def test_infeasible_rate_warns_like_the_reference():
@@ -342,8 +353,14 @@ def test_compile_needs_a_card_unless_asked_for_cpu(monkeypatch):
         tmain.selftest(verbose=False)
 
 
-def test_selftest_passes_on_cpu():
+def test_selftest_passes_on_cpu(capsys):
     assert tmain.main(["--selftest", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    # the report checks the reference's selftest makes
+    assert "[ok] report reproduces the Tables II-VI deep-app " \
+        "accounting" in out
+    assert "[ok] report power decomposes" in out
+    assert "FAIL" not in out
 
 
 # ------------------------------ no JAX in the port -------------------- #

@@ -28,6 +28,7 @@ from repro_torch.core import crossbar_layer as tcl
 from repro_torch.core import quantization as tq
 from repro_torch.core.device import DEFAULT_DEVICE as TDEVICE
 from repro_torch.core.neural_core import CoreGeometry as TGeom
+from repro_torch.variability import NoiseModel as TNoise
 
 torch.set_num_threads(1)
 
@@ -233,9 +234,25 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
 
 
 def test_program_refuses_noise_until_the_variability_slice():
-    w = torch.zeros((8, 4))
-    with pytest.raises(NotImplementedError, match="variability slice"):
-        tcl.program_layer(w, noise=object())
+    """The variability slice is in: ``program_layer``/``program_mlp``
+    take a NoiseModel; an ideal one programs the same tiles as none,
+    and a noisy one perturbs them."""
+    w = torch.from_numpy(_weights(3, 40, 12))
+    ideal = tcl.program_layer(w, geom=TGeom(16, 8))
+    same = tcl.program_layer(w, geom=TGeom(16, 8), noise=TNoise())
+    for f in ("gp", "gn", "scale"):
+        assert torch.equal(getattr(same, f), getattr(ideal, f))
+    noisy = tcl.program_layer(w, geom=TGeom(16, 8),
+                              noise=TNoise(program_sigma=0.2))
+    assert not torch.equal(noisy.gp, ideal.gp)
+    spec = tcl.MLPSpec((40, 12))
+    params = [{"w": w, "b": torch.zeros(12)}]
+    prog = tcl.program_mlp(params, spec, geom=TGeom(16, 8),
+                           noise=TNoise(program_sigma=0.2))
+    assert torch.equal(prog.layers[0].gp, noisy.gp)
+    dig = tcl.program_mlp(params, spec, mode="digital",
+                          noise=TNoise(program_sigma=0.2))
+    assert torch.equal(dig.layers[0].wq, tcl.program_digital(w).wq)
 
 
 def test_programmed_containers_are_frozen():

@@ -3,6 +3,10 @@ PyTorch version at the deep app's shapes, and the deep-app stream
 through the kernels. Every test here carries the ``gpu`` marker and
 skips (decided in a fixture) where no card is visible.
 
+It also streams a noisy, drifting deep-app chip and the paper's object
+and ocr nets (24 and 20 row chunks; digital rows of 3072 and 2500
+bytes) through the kernels, layer by layer against the einsum path.
+
 This file imports no JAX (the machine with the card has none), so it
 runs there on its own:
 
@@ -25,6 +29,7 @@ from repro_torch.core import crossbar_layer as tcl
 from repro_torch.core import quantization as tq
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.variability import NoiseModel
 
 torch.set_num_threads(1)
 
@@ -220,3 +225,72 @@ def test_gpu_deep_app_stream_goes_through_the_kernels(cuda, system):
             near = pre_p.abs() <= BAND * pre_p.abs().max()
             assert not bool((differ & ~near).any())
         h = act(pre_p)
+
+
+def _layers_match(plan, x, age=None):
+    """Each layer's kernel pre-activation against the einsum path's on
+    the same input; threshold units may differ only in the band."""
+    h = x
+    for layer in plan:
+        lin = dataclasses.replace(layer, activation="linear")
+        pre_k = tcompile._apply_stream_layer(lin, h, True, age)
+        pre_p = tcompile._apply_stream_layer(lin, h, False, age)
+        assert _rel(pre_k.cpu(), pre_p.cpu()) <= 1e-5
+        act = tq.make_activation(layer.activation)
+        if layer.activation == "threshold":
+            differ = act(pre_k) != act(pre_p)
+            near = pre_p.abs() <= BAND * pre_p.abs().max()
+            assert not bool((differ & ~near).any())
+        h = act(pre_p)
+
+
+@pytest.mark.gpu
+def test_gpu_drifting_deep_app_stream_goes_through_the_kernel(cuda):
+    """A noisy, drifting deep-app chip: three crossbar launches a call
+    at every age, the clock advancing by the batch, and each layer's
+    decayed tiles through the kernel matching the einsum path."""
+    tspec = tcl.MLPSpec(DEEP)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+    noise = NoiseModel(program_sigma=0.1, stuck_on_frac=0.01,
+                       stuck_off_frac=0.01, ir_drop_r_seg=1.0,
+                       drift_rate=1e-6, seed=0)
+    chip = compile_chip(tspec, params=params, noise=noise, device=cuda)
+    assert all(layer.drift is not None and
+               layer.drift.device.type == cuda.type for layer in chip.plan)
+    x = torch.rand((4096, 784), generator=torch.Generator().manual_seed(1),
+                   device="cpu").to(cuda)
+    outs = []
+    for _ in range(3):
+        age = chip.items_streamed
+        ops.reset_launch_counts()
+        outs.append(chip.stream(x))
+        assert ops.launch_counts()["crossbar_mvm"] == 3
+        assert chip.items_streamed == age + 4096
+        _layers_match(chip.plan, x, torch.full((), float(age),
+                                               device=cuda))
+    assert not torch.equal(outs[0], outs[2])
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(3072, 100, 10), (2500, 60, 26)])
+@pytest.mark.parametrize("system", ["memristor", "digital"])
+@pytest.mark.parametrize("batch", [37, 16384])
+def test_gpu_object_and_ocr_nets_through_the_kernels(cuda, dims, system,
+                                                     batch):
+    """The object (24 row chunks at 128×64; 3072-byte digital rows) and
+    ocr (20 row chunks, one 60-column tile; 2500-byte rows) nets."""
+    tspec = tcl.MLPSpec(dims)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(2),
+                          device=cuda)
+    chip = compile_chip(tspec, params=params, system=system, device=cuda)
+    x = torch.rand((batch, dims[0]),
+                   generator=torch.Generator().manual_seed(3),
+                   device="cpu").to(cuda)
+    ops.reset_launch_counts()
+    out = chip.stream(x)
+    key = "crossbar_mvm" if system == "memristor" else "int8_matmul_fused"
+    assert ops.launch_counts()[key] == 2
+    assert out.shape == (batch, dims[-1]) and bool(torch.isfinite(out).all())
+    _layers_match(chip.plan, x)

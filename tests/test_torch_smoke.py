@@ -1,6 +1,9 @@
 """The card scripts' bookkeeping, on the CPU: what ``chip_smoke.py``
-reports under each key of a kernel row, and how ``scripts/kernel_ab.py``
-refuses to run without trees or a card. Nothing here times anything."""
+reports under each key of a kernel row, its phases 5 and 6 run on the
+kernels' plain versions with the launch counters bumped as launches
+would, how it refuses to run without a card, and how
+``scripts/kernel_ab.py`` refuses to run without trees or a card.
+Nothing here times anything."""
 import importlib.util
 import pathlib
 import subprocess
@@ -72,3 +75,99 @@ def test_kernel_ab_refuses_without_trees_or_a_card(args):
                           cwd=ROOT)
     assert proc.returncode == 2
     assert proc.stdout == ""
+
+
+# ------------------ phases 5 and 6, rehearsed on the CPU ------------------ #
+@pytest.fixture
+def cpu_smoke(monkeypatch):
+    """chip_smoke's phases on the CPU: the kernels' plain versions run,
+    each wrapper call bumps its launch counter as a launch would,
+    ``synchronize`` is a no-op, and the batch is 256 items (the drift
+    rate scaled so a batch ages the chip as 16,384 items do on the
+    card)."""
+    from repro_torch.kernels import crossbar_mvm as cb_mod
+    from repro_torch.kernels import int8_matmul as i8_mod
+    from repro_torch.kernels import ops
+    module = _load("chip_smoke", ROOT / "chip_smoke.py")
+    o_cb, o_i8 = ops.crossbar_mvm, ops.int8_matmul
+
+    def counted_cb(*a, **k):
+        cb_mod.launches.add()
+        return o_cb(*a, **k)
+
+    def counted_i8(x, w, scale=None, offset=None, **k):
+        (i8_mod.fused_launches if scale is not None
+         else i8_mod.raw_launches).add()
+        return o_i8(x, w, scale, offset, **k)
+
+    monkeypatch.setattr(ops, "crossbar_mvm", counted_cb)
+    monkeypatch.setattr(ops, "int8_matmul", counted_i8)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    rate = module.DRIFT_RATE * module.STREAM_B / 256
+    monkeypatch.setattr(module, "STREAM_B", 256)
+    monkeypatch.setattr(module, "DRIFT_RATE", rate)
+    monkeypatch.setattr(module, "NOISE_KW",
+                        dict(module.NOISE_KW, drift_rate=rate))
+    return module, ops
+
+
+def _phase_lines(out):
+    import json
+    return {d["phase"]: d for d in map(json.loads, out.splitlines())
+            if "phase" in d}
+
+
+def test_smoke_variability_phase_on_the_cpu(cpu_smoke, capsys):
+    import repro_torch.chip as chip_mod
+    import repro_torch.variability as var
+    from repro_torch.chip import compile as tcompile
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.core import quantization as tq
+    smoke, ops = cpu_smoke
+    chip, x, launches = smoke.phase_variability(
+        torch, ops, tcompile, tq, tcl, chip_mod, var, torch.device("cpu"),
+        "cpu")
+    line = _phase_lines(capsys.readouterr().out)["variability"]
+    assert line["launches_per_stream_call"] == [3] * smoke.DRIFT_CALLS
+    # 8 calls + a probe + 2 ideal-model streams, the drift-only chip's 6,
+    # the canary's 3 + 4 × (stream, probe, probe after the recal)
+    assert launches == {"crossbar_mvm": 93, "int8_matmul_fused": 6,
+                        "int8_matmul_raw": 0}
+    assert [c["age"] for c in line["checks"]] == [0, 256, 7 * 256]
+    assert line["output_moved_rel_oldest_vs_age0"] > 1e-3
+    assert line["canary"]["accuracy_after"] == [1.0] * 4
+    assert min(line["canary"]["series"]["accuracy"]) < 0.99
+    assert chip.items_streamed == smoke.DRIFT_CALLS * 256
+
+
+def test_smoke_paper_apps_phase_on_the_cpu(cpu_smoke, capsys):
+    import repro_torch.chip as chip_mod
+    from repro_torch.chip import compile as tcompile
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.core import quantization as tq
+    smoke, ops = cpu_smoke
+    launches = smoke.phase_paper_apps(torch, ops, tcompile, tq, tcl,
+                                      chip_mod, torch.device("cpu"), "cpu")
+    line = _phase_lines(capsys.readouterr().out)["paper_apps"]
+    assert line["reports_equal_golden"] == 15
+    assert len(line["nets"]) == 15
+    assert launches == {"crossbar_mvm": 16, "int8_matmul_fused": 11,
+                        "int8_matmul_raw": 0}
+    assert {(r["app"], tuple(r["tiles"][0])) for r in line["nets"]
+            if r["system"] == "memristor" and r["app"] in
+            ("object", "ocr")} == {("object", (24, 2)), ("ocr", (20, 1))}
+
+
+def test_smoke_refuses_without_a_card_or_the_repository(tmp_path):
+    """Without a card it exits non-zero and prints no result, also from
+    a directory that holds chip_smoke.py and nothing else."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the script would run")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", alone):
+        proc = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True, timeout=120,
+                              cwd=script.parent)
+        assert proc.returncode != 0
+        assert proc.stdout == ""
