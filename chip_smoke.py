@@ -43,10 +43,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
   6. paper apps: every app's ``compile_app(...).report()`` and RISC
      cost against ``tests/golden/fleet_tables.json`` at 1e-9, and every
      weighted net of the five apps streamed (16,384 items) through the
-     kernels on both systems, checked layer by layer.
+     kernels on both systems, checked layer by layer;
+  7. wide digital: the deep app on the digital system at 12-bit codes,
+     streamed (16,384 items) through the raw int8 kernel in byte planes
+     (four launches a layer) and equal to the einsum path to the bit;
+     the raw kernel against its plain version at the plane shapes; a
+     ``serve()`` drain; the raw kernel's times and bound, and the wide
+     stream's items/s against the einsum path's;
+  8. fleet: the deep app on both systems as ``shard_chip(chip, 4)``,
+     four logical chips on the one card: streams of 16,384 and 4,097
+     items against the chip's, resize 4→2→4 and reprogram with no
+     compile, phase 5's drifting chip as a fleet at three ages against
+     the chip, a ``FleetRouter`` draining a sensor-fed ``StreamSource``
+     (32 requests of 9 windows) whose outputs match the direct stream,
+     and ``fleet.report``; then fleet and chip timed alternately (ms a
+     batch, device busy time, kernels a batch) and router steps/s
+     beside ``chip.serve(slots=16)`` on the same requests.
 
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5 and 6.
+(phases 2–3) and in phases 5–8.
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -100,6 +115,13 @@ CANARY_ROWS = 256
 CANARY_SLO = 0.99
 CANARY_STEPS = 4
 REPORT_RTOL = 1e-9      # the golden Tables II–VI pins' own tolerance
+
+WIDE_BITS = 12          # phase 7: two byte planes of input and synapses
+FLEET_CHIPS = 4         # phase 8: logical chips on the one card
+FLEET_RAGGED_B = 4097   # a batch that 4 chips do not divide
+FLEET_TOL = 1e-6        # fleet vs chip: K1 runs at another batch size
+FLEET_LANES = 4         # router lanes a chip: 16 lanes, as serve(slots=16)
+FLEET_REQUESTS = 32     # sensor frames (9 windows of 28×28 each)
 
 
 class SmokeFailure(Exception):
@@ -575,10 +597,6 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                     "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:48",
                     launches["int8_matmul_fused"], rows_i8),
     ]
-    off_path = [_kernel_row("int8_matmul_raw", "src/repro_torch/kernels/"
-                            "csrc/int8_matmul.cu",
-                            "src/repro/kernels/int8_matmul.py:36",
-                            launches["int8_matmul_raw"], rows_raw)]
 
     # end to end: stream items/s at B = 16,384, in alternating rounds
     # (einsum, kernel, kernel, einsum) so the two paths share the card's
@@ -615,7 +633,7 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                "slots": 4, "steps": eng.steps, "drains": rates[1:],
                "warm_up_drain": rates[0],
                "steps_per_s": _quartiles(rates[1:])[0], "card": name})
-    return kernels, off_path
+    return kernels
 
 
 # --------------------------------------------------------------------- #
@@ -897,6 +915,322 @@ def phase_paper_apps(torch, ops, tcompile, tq, tcl, chip_mod, dev, card):
 
 
 # --------------------------------------------------------------------- #
+# phase 7: wide digital codes through the raw int8 kernel's byte planes
+# --------------------------------------------------------------------- #
+def _layer_planes(torch, tcl, chip, x):
+    """Each wide layer's input-code and synapse byte planes on the
+    einsum path's own activations: [(layer, x planes, w planes)]."""
+    from repro_torch.chip import compile as tcompile
+    h, out = x, []
+    for i, layer in enumerate(chip.plan):
+        p = layer.tiles
+        xq = tcl.quantize_inputs(p, h.to(torch.float32))
+        out.append((i, tcl.unsigned_byte_planes(xq, -(-p.bits // 8)),
+                    p.planes))
+        h = tcompile._apply_stream_layer(layer, h, False)
+    return out
+
+
+def phase_wide_digital(torch, ops, ref, tcl, chip_mod, dev, card):
+    """The deep app on the digital system at 12-bit codes: stream and
+    serve through the raw int8 kernel's byte planes (counters reset
+    just before, read just after), then the stream against the einsum
+    path (to the bit) and the raw kernel against its plain version at
+    the plane shapes."""
+    spec = tcl.MLPSpec(DEEP, activation="threshold", out_activation="linear")
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    x = torch.rand((STREAM_B, DEEP[0]),
+                   generator=torch.Generator().manual_seed(7)).to(dev)
+    gen = torch.Generator().manual_seed(8)
+    items = [torch.rand((3 + i % 4, DEEP[0]), generator=gen).numpy()
+             for i in range(8)]
+
+    ops.reset_launch_counts()
+    chip = chip_mod.compile_chip(spec, params=params, system="digital",
+                                 weight_bits=WIDE_BITS, device=dev)
+    before = ops.launch_counts()
+    out = chip.stream(x)
+    per_call = _deltas(ops.launch_counts(), before)
+    eng = chip.serve(slots=4)
+    for uid, it in enumerate(items):
+        eng.submit(chip_mod.ChipRequest(uid=uid, items=it))
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    planes = [tuple(layer.tiles.planes.shape) for layer in chip.plan]
+    per_layer = (-(-WIDE_BITS // 8)) * chip.plan[0].tiles.planes.shape[0]
+    _require(per_call == {"crossbar_mvm": 0, "int8_matmul_fused": 0,
+                          "int8_matmul_raw": per_layer * len(chip.plan)},
+             f"wide digital stream launches {per_call}")
+    _require(len(done) == len(items), f"wide digital: served {len(done)}")
+    _require(launches["int8_matmul_raw"] ==
+             per_layer * len(chip.plan) * (1 + eng.steps),
+             f"wide digital launches {launches}")
+    plain = chip.stream(x, use_kernel=False)
+    _require(bool(torch.equal(out, plain)),
+             f"wide digital stream differs from the einsum path: rel "
+             f"{_rel(out, plain):.3g}")
+    _require(tuple(out.shape) == (STREAM_B, DEEP[-1]) and
+             bool(torch.isfinite(out).all()), "wide digital output")
+    served_equal = all(
+        torch.equal(torch.from_numpy(st.result),
+                    chip.stream(torch.from_numpy(st.request.items)
+                                .to(dev)).cpu()) for st in done)
+    _require(served_equal, "wide digital: served outputs differ from the "
+                           "direct stream")
+    checks = 0
+    for i, xp, wp in _layer_planes(torch, tcl, chip, x):
+        for a in range(xp.shape[0]):
+            for b in range(wp.shape[0]):
+                _require(torch.equal(ops.int8_matmul(xp[a], wp[b]),
+                                     ref.int8_matmul_ref(xp[a], wp[b])),
+                         f"raw int8 layer {i} planes ({a}, {b}) not exact")
+                checks += 1
+    _line({"phase": "wide_digital", "bits": WIDE_BITS, "items": STREAM_B,
+           "planes": planes, "launches_per_stream_call": per_call,
+           "launches": launches, "stream_equal_to_einsum_path": True,
+           "served_requests": len(done), "engine_steps": eng.steps,
+           "served_equal_to_direct_stream": True,
+           "raw_plane_checks_exact": checks, "card": card})
+    return chip, x, launches
+
+
+def phase_wide_digital_times(torch, ops, ref, tcl, chip, x, launches, card):
+    """The raw int8 kernel's row of the ``kernels`` line (``launches``:
+    the main path's): per layer, the plane products of one streamed
+    batch (one launch each), against the plain version and one PyTorch
+    matmul a product, with the bound; then the wide stream's items/s
+    through the planes and on the einsum path, alternating."""
+    rows = []
+    for i, xp, wp in _layer_planes(torch, tcl, chip, x):
+        pairs = [(a, b) for a in range(xp.shape[0])
+                 for b in range(wp.shape[0])]
+        B, K = xp.shape[1:]
+        N = wp.shape[2]
+        wf = [w.float() for w in wp]
+        err = max(float((ops.int8_matmul(xp[a], wp[b]) -
+                         ref.int8_matmul_ref(xp[a], wp[b])).abs().max())
+                  for a, b in pairs)
+        # each x and w plane read once, each int32 product written once
+        nbytes = (xp.shape[0] * B * K + wp.shape[0] * K * N +
+                  4 * len(pairs) * B * N)
+        t_bytes, t_ops = _bound(nbytes, len(pairs) * 2 * B * K * N,
+                                INT8_OPS)
+        rows.append({
+            "kernel": "int8_matmul_raw", "layer": i, "bits": WIDE_BITS,
+            "plane_products": len(pairs), "shape": [B, K, N],
+            "max_abs_err": err,
+            **_times(torch,
+                     lambda: [ops.int8_matmul(xp[a], wp[b])
+                              for a, b in pairs],
+                     lambda: [ref.int8_matmul_ref(xp[a], wp[b])
+                              for a, b in pairs],
+                     lambda: [xp[a].float() @ wf[b] for a, b in pairs]),
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "card": card})
+    for r in rows:
+        _line(r)
+    # the wide stream end to end, planes and einsum path alternating
+    times = {True: [], False: []}
+    for _ in range(STREAM_ROUNDS):
+        for use_kernel in (False, True, True, False):
+            times[use_kernel].append(_time_ms(
+                torch, lambda: chip.stream(x, use_kernel=use_kernel),
+                iters=10))
+    for use_kernel, ms in times.items():
+        med, q1, q3 = _quartiles(ms)
+        _line({"metric": "wide_digital_stream_items_per_s",
+               "bits": WIDE_BITS, "use_kernel": use_kernel,
+               "batch": STREAM_B, "ms_per_batch_median": med,
+               "ms_per_batch_q1": q1, "ms_per_batch_q3": q3,
+               "runs": len(ms), "items_per_s": STREAM_B / med * 1e3,
+               **_device_busy(torch, chip, x, use_kernel, med), "card": card})
+    return _kernel_row("int8_matmul_raw", "src/repro_torch/kernels/csrc/"
+                       "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:36",
+                       launches["int8_matmul_raw"], rows)
+
+
+# --------------------------------------------------------------------- #
+# phase 8: the fleet — four logical chips on the one card
+# --------------------------------------------------------------------- #
+def _fleet_vs_chip(torch, got, want):
+    e = _rel(got, want)
+    _require(e <= FLEET_TOL and tuple(got.shape) == tuple(want.shape),
+             f"fleet vs chip rel {e:.3g}")
+    return {"equal": bool(torch.equal(got, want)), "rel": e}
+
+
+def phase_fleet(torch, ops, tcompile, tcl, chip_mod, drifting, dev, card):
+    """The deep app on both systems as four logical chips on the one
+    card (counters reset just before, read just after): streams of
+    16,384 and 4,097 items, resize 4 → 2 → 4, reprogram, the drifting
+    chip as a fleet at three ages, a sensor-fed router drain and the
+    report; then each result against the chip's."""
+    import numpy as np
+
+    from repro_torch.data import SensorPipeline
+    from repro_torch.fleet import FleetRouter, StreamSource, shard_chip
+    spec = tcl.MLPSpec(DEEP, activation="threshold", out_activation="linear")
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    params2 = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(9),
+                           device=dev)
+    x = torch.rand((STREAM_B, DEEP[0]),
+                   generator=torch.Generator().manual_seed(10)).to(dev)
+    pipe = SensorPipeline(window=28, stride=18)
+    _require(pipe.d_item == DEEP[0] and pipe.items_per_step == 9,
+             "sensor windows are not the deep app's items")
+    chips = {s: chip_mod.compile_chip(spec, params=params, system=s,
+                                      device=dev)
+             for s in ("memristor", "digital")}
+
+    ops.reset_launch_counts()
+    c0 = chip_mod.compile_count()
+    got, per_batch, routers = {}, {}, {}
+    for system, chip in chips.items():
+        fleet = shard_chip(chip, FLEET_CHIPS)
+        before = ops.launch_counts()
+        got[system, "batch"] = fleet.stream(x)
+        per_batch[system] = _deltas(ops.launch_counts(), before)
+        got[system, "ragged"] = fleet.stream(x[:FLEET_RAGGED_B])
+        for n in (2, FLEET_CHIPS):
+            fleet.resize(n)
+            got[system, f"resize_{n}"] = fleet.stream(x)
+        fleet.reprogram(params2)
+        got[system, "reprogram"] = fleet.stream(x)
+        router = FleetRouter(fleet, lanes_per_chip=FLEET_LANES)
+        source = StreamSource(pipe, n_requests=FLEET_REQUESTS, capacity=8)
+        done = sorted(router.serve(source), key=lambda st: st.request.uid)
+        routers[system] = (fleet, router, source, done)
+    ages, drift_fleet = [], shard_chip(drifting, FLEET_CHIPS)
+    for _ in range(3):
+        ages.append(drifting.items_streamed)
+        got["drifting", ages[-1]] = drift_fleet.stream(x)
+    compile_delta = chip_mod.compile_count() - c0
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    _require(compile_delta == 0, f"fleet compile delta {compile_delta}")
+    kernel = {"memristor": "crossbar_mvm", "digital": "int8_matmul_fused"}
+    for system, per in per_batch.items():
+        want = {k: 3 if k == kernel[system] else 0 for k in per}
+        _require(per == want, f"{system} fleet batch launches {per}")
+    _require([b - a for a, b in zip(ages, ages[1:])] == [STREAM_B] * 2 and
+             drifting.items_streamed == ages[-1] + STREAM_B,
+             f"fleet drift clock {ages}, {drifting.items_streamed}")
+    results = {}
+    for system, chip in chips.items():
+        re = chip_mod.reprogram_chip(chip, params2)
+        want = {"batch": chip.stream(x),
+                "ragged": chip.stream(x[:FLEET_RAGGED_B]),
+                "resize_2": chip.stream(x),
+                f"resize_{FLEET_CHIPS}": chip.stream(x),
+                "reprogram": re.stream(x)}
+        results[system] = {k: _fleet_vs_chip(torch, got[system, k], w)
+                           for k, w in want.items()}
+        fleet, router, source, done = routers[system]
+        _require(len(done) == FLEET_REQUESTS and source.exhausted and
+                 all(st.result.shape == (9, DEEP[-1]) for st in done),
+                 f"{system} router drained {len(done)}")
+        items = torch.from_numpy(np.concatenate([st.request.items
+                                                 for st in done])).to(dev)
+        direct = fleet.stream(items).cpu()
+        served = torch.from_numpy(np.concatenate([st.result for st in done]))
+        diff = float((served - direct).abs().max())
+        # the reference selftest's bound: lanes batch differently
+        _require(diff <= 1e-5, f"{system} router outputs differ from the "
+                               f"direct stream by {diff:.3g}")
+        rep = fleet.report(router)
+        chip_rep = chip.report()
+        _require(rep.n_chips == FLEET_CHIPS and
+                 abs(rep.power_mw - FLEET_CHIPS * chip_rep.power_mw) < 1e-9
+                 and rep.served.items == FLEET_REQUESTS * 9,
+                 f"{system} fleet report {rep}")
+        results[system]["router"] = {
+            "requests": len(done), "steps": router.steps,
+            "lanes": router.slots, "items": router.items_emitted,
+            "served_equal_to_direct_stream": bool(torch.equal(served,
+                                                              direct)),
+            "served_max_abs_diff": diff,
+            "report_capacity_items_per_s": rep.capacity_items_per_second}
+    drift = {}
+    for age in ages:
+        age_t = torch.full((), float(age), dtype=torch.float32, device=dev)
+        want = tcompile.stream_pipeline(drifting.plan, x, use_kernel=True,
+                                        replication=drifting.replication,
+                                        age=age_t)
+        drift[age] = _fleet_vs_chip(torch, got["drifting", age], want)
+    _line({"phase": "fleet", "chips": FLEET_CHIPS, "on": "one card",
+           "items": STREAM_B, "ragged_items": FLEET_RAGGED_B,
+           "tol": FLEET_TOL, "launches_per_fleet_batch": per_batch,
+           "compile_delta": compile_delta, "systems": results,
+           "drifting": {str(a): d for a, d in drift.items()},
+           "launches": launches, "card": card})
+    return chips, x, launches
+
+
+def phase_fleet_times(torch, chip_mod, chips, x, card):
+    """Fleet and single chip alternating in one process (chip, fleet,
+    fleet, chip): ms a batch, device busy time, idle share and kernels a
+    batch, with the fleet held to the chip's kernels and busy time; then
+    router steps/s beside ``chip.serve(slots=16)`` on the same
+    requests, the median of three drains after a warm-up."""
+    from repro_torch.data import SensorPipeline
+    from repro_torch.fleet import FleetRouter, shard_chip
+    pipe = SensorPipeline(window=28, stride=18)
+    requests = [pipe.batch(step).numpy() for step in range(FLEET_REQUESTS)]
+    for system, chip in chips.items():
+        paths = {"chip": chip, "fleet": shard_chip(chip, FLEET_CHIPS)}
+        times = {k: [] for k in paths}
+        for _ in range(STREAM_ROUNDS):
+            for k in ("chip", "fleet", "fleet", "chip"):
+                times[k].append(_time_ms(torch, lambda: paths[k].stream(x),
+                                         iters=10))
+        busy = {}
+        for k, ms in times.items():
+            med, q1, q3 = _quartiles(ms)
+            busy[k] = _device_busy(torch, paths[k], x, True, med)
+            _line({"metric": "fleet_stream_items_per_s", "system": system,
+                   "path": k, "chips": FLEET_CHIPS if k == "fleet" else 1,
+                   "batch": STREAM_B, "ms_per_batch_median": med,
+                   "ms_per_batch_q1": q1, "ms_per_batch_q3": q3,
+                   "runs": len(ms), "items_per_s": STREAM_B / med * 1e3,
+                   **busy[k], "card": card})
+        if all(b["device_busy_ms"] != "not measured"
+               for b in busy.values()):
+            _require(busy["fleet"]["kernels_per_batch"] <=
+                     busy["chip"]["kernels_per_batch"] + 2,
+                     f"{system} fleet kernels a batch {busy}")
+            _require(busy["fleet"]["device_busy_ms"] <=
+                     1.05 * busy["chip"]["device_busy_ms"],
+                     f"{system} fleet device busy {busy}")
+        engines = {
+            "fleet_router": lambda: FleetRouter(
+                paths["fleet"], lanes_per_chip=FLEET_LANES),
+            "chip_engine": lambda: chip.serve(
+                slots=FLEET_LANES * FLEET_CHIPS)}
+        rates = {k: [] for k in engines}
+        steps = {}
+        for _ in range(1 + SERVE_DRAINS):   # the first round warms up
+            for k, make in engines.items():
+                eng = make()
+                for uid, it in enumerate(requests):
+                    eng.submit(chip_mod.ChipRequest(uid=uid, items=it))
+                t0 = time.perf_counter()
+                eng.run_until_drained()
+                torch.cuda.synchronize()
+                rates[k].append(eng.steps / (time.perf_counter() - t0))
+                steps[k] = eng.steps
+        for k, r in rates.items():
+            _line({"metric": "fleet_router_steps_per_s", "system": system,
+                   "engine": k, "lanes": FLEET_LANES * FLEET_CHIPS,
+                   "requests": FLEET_REQUESTS, "steps": steps[k],
+                   "drains": r[1:], "warm_up_drain": r[0],
+                   "steps_per_s": _quartiles(r[1:])[0], "card": card})
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -939,23 +1273,29 @@ def main() -> int:
         phase_kernels(torch, ops, ref, dev)
         chips, launches = phase_main_path(torch, ops, tcompile, tq, tcl,
                                           chip_mod, dev, card)
-        kernels, off_path = phase_times(torch, ops, ref, tcompile, tcl,
-                                        chip_mod, chips, launches, dev,
-                                        card)
+        kernels = phase_times(torch, ops, ref, tcompile, tcl, chip_mod,
+                              chips, launches, dev, card)
         drifting, x_var, var_launches = phase_variability(
             torch, ops, tcompile, tq, tcl, chip_mod, var, dev, card)
         phase_variability_times(torch, chip_mod, tcl, drifting, x_var, dev,
                                 card)
         app_launches = phase_paper_apps(torch, ops, tcompile, tq, tcl,
                                         chip_mod, dev, card)
-        # each kernel's launches: the main path's and the new phases'
-        for row in kernels + off_path:
-            row["launches"] += var_launches[row["name"]] + \
-                app_launches[row["name"]]
+        wide, x_wide, wide_launches = phase_wide_digital(
+            torch, ops, ref, tcl, chip_mod, dev, card)
+        fleet_chips, x_fleet, fleet_launches = phase_fleet(
+            torch, ops, tcompile, tcl, chip_mod, drifting, dev, card)
+        kernels.append(phase_wide_digital_times(
+            torch, ops, ref, tcl, wide, x_wide, launches, card))
+        phase_fleet_times(torch, chip_mod, fleet_chips, x_fleet, card)
+        # each kernel's launches: the main path's and the later phases'
+        for row in kernels:
+            for later in (var_launches, app_launches, wide_launches,
+                          fleet_launches):
+                row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    _line({"kernels_off_main_path": off_path, "card": card})
     _line({"kernels": kernels})
     _line({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

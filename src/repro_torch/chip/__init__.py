@@ -14,7 +14,7 @@ from repro_torch.chip.compile import (ChipRateWarning, CompiledChip,
                                       StreamLayer, compile_app,
                                       compile_chip, compile_count,
                                       program_plan, reprogram_chip,
-                                      stream_pipeline)
+                                      stream_pipeline, validate_stream_rate)
 from repro_torch.chip.report import ChipReport, chip_report
 from repro_torch.chip.serving import (ChipEngine, ChipRequest,
                                       ChipRequestState)
@@ -22,4 +22,5 @@ from repro_torch.chip.serving import (ChipEngine, ChipRequest,
 __all__ = ["ChipRateWarning", "ChipReport", "CompiledChip", "StreamLayer",
            "chip_report", "compile_app", "compile_chip", "compile_count",
            "program_plan", "reprogram_chip", "stream_pipeline",
+           "validate_stream_rate",
            "ChipEngine", "ChipRequest", "ChipRequestState"]

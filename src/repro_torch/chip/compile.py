@@ -68,6 +68,19 @@ def compile_count() -> int:
     return _COMPILE_COUNT
 
 
+# legacy serving-assembly entry points warn ONCE per process when used
+# directly; keyed so tests can reset and assert the exactly-once contract
+_DEPRECATION_WARNED: set = set()
+
+
+def warn_once_deprecated(key: str, message: str, *,
+                         stacklevel: int = 3) -> None:
+    if key in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(key)
+    warnings.warn(message, DeprecationWarning, stacklevel=stacklevel)
+
+
 # --------------------------------------------------------------------- #
 # the streamable execution plan
 # --------------------------------------------------------------------- #
@@ -374,31 +387,60 @@ class ChipRateWarning(UserWarning):
     TDM link schedule can sustain."""
 
 
-def _validate_rate(items_per_second: float, replicas: int,
-                   route: routing_lib.RouteReport, strict: bool) -> None:
+def validate_stream_rate(items_per_second: float, replicas: int,
+                         route: routing_lib.RouteReport,
+                         strict: bool, *,
+                         context: str = "compile_chip",
+                         fabric: str = "replica(s)",
+                         remedy: str = ("Use a larger core geometry "
+                                        "(fewer row chunks -> less mesh "
+                                        "traffic), lower the target "
+                                        "rate, or split the load across "
+                                        "chips (repro_torch.fleet)."),
+                         stacklevel: int = 3,
+                         chip_replicas: Optional[int] = None) -> None:
     """items_per_second sizes the replica fan-out against COMPUTE
     capacity (§V.C), but each replica's mesh is also a static TDM
-    network whose busiest link forwards LINK_BITS per cycle. Warn
+    network whose busiest link forwards LINK_BITS per cycle — a rate a
+    replica's cores could hit may still be un-routable. Warn
     (:class:`ChipRateWarning`), or raise ``ValueError`` when
     ``strict``, when the per-replica rate exceeds what the routed
-    schedule can carry."""
+    schedule can carry.
+
+    ``replicas`` is however many identical copies of the routed fabric
+    share the load: ``mapping.replication`` at compile time, and
+    ``replication × n_chips`` when ``repro_torch.fleet.shard_chip`` fans
+    the same compiled plan out over a fleet. ``chip_replicas`` (the
+    per-chip replication, when ``replicas`` is already the fleet total)
+    folds both capacity levels into the one diagnostic."""
     if not items_per_second:
         return
     per_replica = items_per_second / replicas
     limit = route.max_items_per_second
     if per_replica <= limit * (1.0 + 1e-9):
         return
-    msg = (f"compile_chip: items_per_second={items_per_second:g} is "
-           f"infeasible on the routed fabric: each of the {replicas} "
-           f"replica(s) must stream {per_replica:g} items/s, but the "
-           f"busiest mesh link's TDM frame is {route.schedule_cycles} "
-           f"cycles/item, capping a replica at {limit:g} items/s. Use a "
-           f"larger core geometry (fewer row chunks -> less mesh "
-           f"traffic) or lower the target rate.")
+    capacities = ""
+    if chip_replicas is not None:
+        capacities = (f" Capacity: {chip_replicas * limit:g} items/s "
+                      f"per chip, {replicas * limit:g} items/s "
+                      f"fleet-wide.")
+    msg = (f"{context}: items_per_second={items_per_second:g} is "
+           f"infeasible on the routed fabric: each of the "
+           f"{replicas} {fabric} must stream "
+           f"{per_replica:g} items/s, but the busiest mesh link's TDM "
+           f"frame is {route.schedule_cycles} cycles/item, capping a "
+           f"replica at {limit:g} items/s.{capacities} {remedy}")
     if strict:
         raise ValueError(msg)
-    # stacklevel: here → compile_chip → its caller
-    warnings.warn(msg, ChipRateWarning, stacklevel=3)
+    warnings.warn(msg, ChipRateWarning, stacklevel=stacklevel)
+
+
+def _validate_rate(items_per_second: float, replicas: int,
+                   route: routing_lib.RouteReport, strict: bool) -> None:
+    # point the warning at compile_chip's caller: stacklevel counts
+    # validate_stream_rate(1) → here(2) → compile_chip(3) → user(4)
+    validate_stream_rate(items_per_second, replicas, route, strict,
+                         stacklevel=4)
 
 
 def _spec_dims(prog: ProgrammedMLP) -> Tuple[int, ...]:

@@ -198,8 +198,13 @@ class DigitalParams:
     """Programmed SRAM-core state: int synapses + the requantize
     constants fixed when the synapse memory is written.
 
-    Evaluation is act(acc · scale + offset) with acc = xq @ wq the raw
-    int32 MAC-array output."""
+    Evaluation is act(acc · scale + offset) with acc = xq @ wq the
+    exact integer MAC-array output.
+
+    Above 8 bits ``planes`` holds the codes as signed int8 byte planes,
+    ``wq = Σ_j 256^j · planes[j]`` exactly, split once when the synapse
+    memory is written: the int8 MAC kernel takes one plane at a time
+    (:func:`digital_apply`). None at 8 bits and below."""
     wq: torch.Tensor       # (d_in, d_out) int8 (int32 above 8 bits)
     scale: torch.Tensor    # (d_out,) f32 — step · weight_scale
     offset: torch.Tensor   # (d_out,) f32 — lo · Σ_k wq · weight_scale
@@ -207,11 +212,69 @@ class DigitalParams:
     bits: int
     d_in: int
     d_out: int
+    planes: Optional[torch.Tensor] = None   # (P, d_in, d_out) int8 | None
+
+
+# The widest codes the digital core takes. Above 16 bits an accumulator
+# can pass 2⁵³, where the einsum path's f64 sum stops being exact, and
+# the input codes (f32 integers) stop being exact above 24.
+MAX_DIGITAL_BITS = 16
+
+
+def _weight_planes(bits: int) -> int:
+    """Signed byte planes that hold every code in [-qmax, qmax]: p
+    signed digits span up to 127·(256^p − 1)/255."""
+    qmax = 2 ** (bits - 1) - 1
+    p = 1
+    while 127 * (256 ** p - 1) // 255 < qmax:
+        p += 1
+    return p
+
+
+def signed_byte_planes(wq: torch.Tensor, n: int) -> torch.Tensor:
+    """Integer codes → (n, *wq.shape) int8 planes with
+    ``wq = Σ_j 256^j · planes[j]``: each plane takes the low byte as a
+    signed digit in [-128, 127] and carries the rest into the next."""
+    rest = wq.to(torch.int64)
+    planes = []
+    for _ in range(n):
+        digit = torch.remainder(rest + 128, 256) - 128
+        planes.append(digit.to(torch.int8))
+        rest = torch.div(rest - digit, 256, rounding_mode="floor")
+    if bool(torch.any(rest != 0)):
+        raise ValueError(f"signed_byte_planes: codes do not fit {n} "
+                         f"signed byte plane(s)")
+    return torch.stack(planes).contiguous()
+
+
+def unsigned_byte_planes(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """Integer codes in [0, 2³¹) (any dtype holding them exactly) →
+    (n, *codes.shape) uint8 planes with ``codes = Σ_i 256^i ·
+    planes[i]``. The copy of an int32 into uint8 keeps its low byte."""
+    c = codes.to(torch.int32)
+    planes = torch.empty((n, *c.shape), dtype=torch.uint8,
+                         device=c.device)
+    for i in range(n):
+        planes[i].copy_(c >> (8 * i) if i else c)
+    return planes
+
+
+def _digital_params(wq, scale, offset, step, bits, d_in, d_out
+                    ) -> DigitalParams:
+    planes = signed_byte_planes(wq, _weight_planes(bits)) \
+        if bits > 8 else None
+    return DigitalParams(wq, scale, offset, step, bits, d_in, d_out,
+                         planes)
 
 
 def program_digital(w: torch.Tensor, *, bits: int = 8) -> DigitalParams:
     """Quantize weights and precompute the per-neuron requantize
-    epilogue constants (program-once for the SRAM core)."""
+    epilogue constants (program-once for the SRAM core); above 8 bits
+    also split the codes into the kernel's int8 byte planes. ``bits``
+    runs from 2 to :data:`MAX_DIGITAL_BITS`."""
+    if not 2 <= bits <= MAX_DIGITAL_BITS:
+        raise ValueError(f"program_digital: bits must be in [2, "
+                         f"{MAX_DIGITAL_BITS}], got {bits}")
     d_in, d_out = w.shape
     wq, ws = q.quantize_weights(w.to(torch.float32), bits=bits,
                                 per_column=True)
@@ -220,8 +283,8 @@ def program_digital(w: torch.Tensor, *, bits: int = 8) -> DigitalParams:
     ws = ws.reshape(-1).to(torch.float32)
     scale = step * ws
     offset = _DIG_LO * torch.sum(wq, dim=0).to(torch.float32) * ws
-    return DigitalParams(wq.contiguous(), scale, offset, step, bits,
-                         d_in, d_out)
+    return _digital_params(wq.contiguous(), scale, offset, step, bits,
+                           d_in, d_out)
 
 
 def quantize_inputs(params: DigitalParams, x: torch.Tensor
@@ -238,31 +301,36 @@ def digital_apply(params: DigitalParams, x: torch.Tensor, *,
     """Streaming evaluate on the digital core: quantize inputs, int
     MAC, fused requantize + bias + activation epilogue.
 
-    ``use_kernel`` runs the int8 MAC kernel with the fused epilogue. It
-    takes codes of at most 8 bits and raises for wider ones (the
-    reference's kernel path wraps them into uint8); the einsum path
-    (``use_kernel=False``) takes any width."""
+    ``use_kernel`` runs the int8 MAC kernel: at 8 bits and below once,
+    with the fused epilogue; above 8 bits once for each pair of byte
+    planes of the input codes and the synapses (raw int32 products,
+    combined exactly in int64), then the same epilogue in PyTorch. The
+    reference's kernel path wraps wide codes into uint8 (R4) and its
+    einsum path sums them in int32, which can overflow (R5); here both
+    paths are exact, and equal to the bit."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
     xq = quantize_inputs(params, xf)
     offset = params.offset
     if bias is not None:
         offset = offset + bias.to(torch.float32).reshape(-1)
-    if use_kernel:
-        if params.bits > 8:
-            raise NotImplementedError(
-                f"digital_apply: the int8 MAC kernel takes codes of at "
-                f"most 8 bits, this layer is programmed at {params.bits}; "
-                f"use use_kernel=False")
+    if use_kernel and params.planes is None:
         from repro_torch.kernels import ops as kops
         out = kops.int8_matmul(xq.to(torch.uint8), params.wq,
                                params.scale, offset,
                                activation=activation)
     else:
-        # integer products summed exactly in f64, then rounded to f32 as
-        # the reference's int32 accumulator is (PyTorch has no integer
-        # matmul on CUDA)
-        acc = xq.to(torch.float64) @ params.wq.to(torch.float64)
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
+            acc = kops.int8_matmul_planes(
+                unsigned_byte_planes(xq, math.ceil(params.bits / 8)),
+                params.planes)
+        else:
+            # integer products summed exactly in f64 (PyTorch has no
+            # integer matmul on CUDA)
+            acc = xq.to(torch.float64) @ params.wq.to(torch.float64)
+        # the exact integer rounded once to f32, as an int32
+        # accumulator is where it does not overflow
         out = acc.to(torch.float32) * params.scale[None, :] + \
             offset[None, :]
         out = q.make_activation(activation)(out)
@@ -332,7 +400,7 @@ def digital_params_from_numpy(wq, scale, offset, *, step: float, bits: int,
     wq_np = np.asarray(wq)
     wq_t = torch.tensor(
         wq_np.astype(np.int8 if bits <= 8 else np.int32), device=dev)
-    return DigitalParams(
+    return _digital_params(
         wq_t, torch.tensor(np.asarray(scale, np.float32), device=dev),
         torch.tensor(np.asarray(offset, np.float32), device=dev),
         float(step), int(bits), int(d_in), int(d_out))

@@ -1,0 +1,47 @@
+"""repro_torch.fleet — one compiled chip served as a fleet of logical
+chips, with continuous batching (port of the single-process half of
+``repro.fleet``):
+
+  fleet = shard_chip(chip, n_chips)        # n logical chips, one image
+  y = fleet.stream(x)                      # == chip.stream(x)
+  router = FleetRouter(fleet, lanes_per_chip=8)
+  router.serve(StreamSource(SensorPipeline()))   # sensor-fed loop
+  print(fleet.report(router))              # hardware + served roll-up
+
+Self-check:  PYTHONPATH=src python -m repro_torch.fleet --selftest
+
+Submodule imports are lazy (PEP 562), as in the reference.
+"""
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "ShardedChip": "repro_torch.fleet.shard",
+    "shard_chip": "repro_torch.fleet.shard",
+    "FleetRouter": "repro_torch.fleet.router",
+    "FleetRequest": "repro_torch.fleet.router",
+    "RouterStats": "repro_torch.fleet.router",
+    "merge_stats": "repro_torch.fleet.router",
+    "stats_from_states": "repro_torch.fleet.router",
+    "BoundedQueue": "repro_torch.fleet.source",
+    "StreamSource": "repro_torch.fleet.source",
+    "FleetReport": "repro_torch.fleet.report",
+    "fleet_report": "repro_torch.fleet.report",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    value = getattr(importlib.import_module(mod), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

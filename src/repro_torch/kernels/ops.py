@@ -84,3 +84,29 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
         return ref.int8_matmul_ref(x, w)
     return ref.int8_matmul_fused_ref(x, w, scale, offset,
                                      activation=activation)
+
+
+def int8_matmul_planes(x_planes: torch.Tensor, w_planes: torch.Tensor
+                       ) -> torch.Tensor:
+    """Exact x @ w for codes wider than 8 bits, from byte planes:
+    x_planes (Px, B, K) uint8 with x = Σ_i 256^i x_i, w_planes
+    (Pw, K, N) int8 with w = Σ_j 256^j w_j → (B, N) int64
+    = Σ_ij 256^(i+j) (x_i @ w_j). One raw int8 MAC (the int32
+    accumulator, no epilogue) for each pair of planes; each plane
+    product is 8-bit, so it keeps within :func:`int8_matmul`'s K guard
+    and cannot overflow. The products are combined exactly in int64 by
+    Horner's rule over i + j, from the top: one add a product, the
+    first of each lower power also multiplying by 256."""
+    px, pw = x_planes.shape[0], w_planes.shape[0]
+    acc = None
+    for d in reversed(range(px + pw - 1)):
+        lo = max(0, d - pw + 1)
+        for i in range(lo, min(d, px - 1) + 1):
+            term = int8_matmul(x_planes[i], w_planes[d - i])
+            if acc is None:
+                acc = term.to(torch.int64)
+            elif i == lo:
+                acc = torch.add(term, acc, alpha=256)
+            else:
+                acc += term
+    return acc

@@ -28,6 +28,7 @@ from repro_torch.core import crossbar_layer as tcl
 from repro_torch.core import quantization as tq
 from repro_torch.core.device import DEFAULT_DEVICE as TDEVICE
 from repro_torch.core.neural_core import CoreGeometry as TGeom
+from repro_torch.kernels import ops as kops
 from repro_torch.variability import NoiseModel as TNoise
 
 torch.set_num_threads(1)
@@ -177,8 +178,9 @@ def test_digital_apply_matches_reference(use_kernel, activation):
 
 
 def test_digital_wide_codes_einsum_path_and_kernel_refusal():
-    """At 12 bits the einsum path matches the reference's; the kernel
-    path raises instead of wrapping the codes into uint8 (R4)."""
+    """At 12 bits the einsum path matches the reference's; the int8 MAC
+    kernel's wrapper refuses the wide codes instead of wrapping them
+    into uint8 (R4): only the byte-plane route takes them."""
     w = _weights(10, 100, 10)
     x = np.random.default_rng(11).uniform(-1, 1, (16, 100)).astype(
         np.float32)
@@ -187,8 +189,69 @@ def test_digital_wide_codes_einsum_path_and_kernel_refusal():
     assert tp.wq.dtype == torch.int32
     ref = jcl.digital_apply(jp, jnp.asarray(x))
     assert _rel(tcl.digital_apply(tp, torch.from_numpy(x)), ref) <= 1e-6
-    with pytest.raises(NotImplementedError, match="8 bits"):
-        tcl.digital_apply(tp, torch.from_numpy(x), use_kernel=True)
+    xq = tcl.quantize_inputs(tp, torch.from_numpy(x)).to(torch.int32)
+    assert int(xq.max()) > 255
+    with pytest.raises(ValueError, match="uint8/int8"):
+        kops.int8_matmul(xq, tp.wq, tp.scale, tp.offset)
+    with pytest.raises(ValueError, match="uint8/int8"):
+        kops.int8_matmul(xq, tp.wq)
+
+
+@pytest.mark.parametrize("bits", [9, 12, 16])
+def test_digital_wide_codes_plane_route_equals_einsum_path(bits):
+    """Above 8 bits the kernel path runs the int8 MAC once per pair of
+    byte planes and combines them exactly: the output equals the einsum
+    path to the bit, and the planes (programmed, or built from carried
+    codes) rebuild the codes exactly."""
+    w = _weights(13, 300, 40)
+    x = np.random.default_rng(14).uniform(-1.2, 1.2, (33, 300)).astype(
+        np.float32)
+    b = (np.random.default_rng(15).standard_normal(40) * 0.1).astype(
+        np.float32)
+    tp = tcl.program_digital(torch.from_numpy(w), bits=bits)
+    carried = _carry_digital(jcl.program_digital(jnp.asarray(w),
+                                                 bits=bits))
+    assert torch.equal(carried.planes, tp.planes)
+    assert tp.planes.dtype == torch.int8
+    weights = 256 ** torch.arange(tp.planes.shape[0])
+    assert torch.equal((tp.planes.long() * weights[:, None, None]).sum(0),
+                       tp.wq.long())
+    for act in ("linear", "sigmoid", "threshold"):
+        kw = dict(bias=torch.from_numpy(b), activation=act)
+        assert torch.equal(
+            tcl.digital_apply(tp, torch.from_numpy(x), use_kernel=True, **kw),
+            tcl.digital_apply(tp, torch.from_numpy(x), **kw))
+    assert tcl.program_digital(torch.from_numpy(w), bits=8).planes is None
+
+
+def test_digital_wide_codes_accumulate_exactly_where_int32_wraps():
+    """R5: at 16 bits and K = 64, all-maximal codes accumulate to
+    65535 · 32767 · 64 ≈ 1.4e11 > 2³¹. The reference's int32
+    accumulator wraps; both of the port's paths hold the exact sum."""
+    k = 64
+    w = np.ones((k, 3), np.float32) * np.asarray([1.0, -1.0, 0.5],
+                                                 np.float32)
+    x = np.ones((2, k), np.float32)
+    jp = jcl.program_digital(jnp.asarray(w), bits=16)
+    tp = tcl.program_digital(torch.from_numpy(w), bits=16)
+    xq = tcl.quantize_inputs(tp, torch.from_numpy(x)).long()
+    exact = xq @ tp.wq.long()
+    assert int(exact.abs().max()) > 2 ** 31 - 1
+    xp = tcl.unsigned_byte_planes(xq, 2)
+    assert torch.equal(kops.int8_matmul_planes(xp, tp.planes), exact)
+    want = exact.to(torch.float32) * tp.scale[None, :] + tp.offset[None, :]
+    for use_kernel in (False, True):
+        assert torch.equal(tcl.digital_apply(tp, torch.from_numpy(x),
+                                             use_kernel=use_kernel), want)
+    # the reference's einsum path sums in int32 and wraps
+    ref = np.asarray(jcl.digital_apply(jp, jnp.asarray(x)))
+    assert _rel(ref, want.numpy()) > 1e-3
+
+
+@pytest.mark.parametrize("bits", [1, 17, 32])
+def test_program_digital_refuses_widths_it_cannot_keep_exact(bits):
+    with pytest.raises(ValueError, match="bits must be in"):
+        tcl.program_digital(torch.from_numpy(_weights(16, 8, 4)), bits=bits)
 
 
 def test_programmed_state_carried_across_is_what_the_port_programs():

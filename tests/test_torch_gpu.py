@@ -5,7 +5,10 @@ skips (decided in a fixture) where no card is visible.
 
 It also streams a noisy, drifting deep-app chip and the paper's object
 and ocr nets (24 and 20 row chunks; digital rows of 3072 and 2500
-bytes) through the kernels, layer by layer against the einsum path.
+bytes) through the kernels, layer by layer against the einsum path; a
+digital chip at 12 and 16 bits through the raw int8 kernel's byte
+planes, equal to the einsum path to the bit; and the deep app as a
+fleet of 1–4 logical chips against the chip (rel ≤ 1e-6).
 
 This file imports no JAX (the machine with the card has none), so it
 runs there on its own:
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.chip import compile as tcompile
 from repro_torch.chip import compile_chip
+from repro_torch.fleet import shard_chip
 from repro_torch.core import crossbar_layer as tcl
 from repro_torch.core import quantization as tq
 from repro_torch.kernels import ops
@@ -294,3 +298,61 @@ def test_gpu_object_and_ocr_nets_through_the_kernels(cuda, dims, system,
     assert ops.launch_counts()[key] == 2
     assert out.shape == (batch, dims[-1]) and bool(torch.isfinite(out).all())
     _layers_match(chip.plan, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [12, 16])
+def test_gpu_wide_digital_stream_through_raw_kernel_planes(cuda, bits):
+    """Codes wider than 8 bits: one raw int8 launch per pair of byte
+    planes a layer (2 × 2 at 12 bits, 2 × 3 at 16), no fused launch, and
+    the stream equal to the einsum path to the bit."""
+    tspec = tcl.MLPSpec(DEEP)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+    chip = compile_chip(tspec, params=params, system="digital",
+                        weight_bits=bits, device=cuda)
+    x = torch.rand((4097, 784), generator=torch.Generator().manual_seed(1),
+                   device="cpu").to(cuda)
+    ops.reset_launch_counts()
+    out = chip.stream(x)
+    pairs = 2 * chip.plan[0].tiles.planes.shape[0]
+    assert ops.launch_counts() == {"crossbar_mvm": 0, "int8_matmul_fused": 0,
+                                   "int8_matmul_raw": 3 * pairs}
+    assert torch.equal(out, chip.stream(x, use_kernel=False))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_matmul_planes_is_exact(cuda):
+    """The plane route's int64 product equals the exact integer product
+    of 12-bit codes (computed on the CPU in int64)."""
+    rng = np.random.default_rng(5)
+    xq = rng.integers(0, 4096, (300, 784))
+    wq = rng.integers(-2047, 2048, (784, 200))
+    xp = tcl.unsigned_byte_planes(torch.from_numpy(xq), 2).to(cuda)
+    wp = tcl.signed_byte_planes(torch.from_numpy(wq), 2).to(cuda)
+    got = ops.int8_matmul_planes(xp, wp)
+    assert got.dtype == torch.int64
+    assert torch.equal(got.cpu(), torch.from_numpy(xq @ wq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["memristor", "digital"])
+@pytest.mark.parametrize("n_chips", [1, 2, 3, 4])
+def test_gpu_fleet_stream_matches_chip(cuda, system, n_chips):
+    """The fleet's batch goes through one stream call: three
+    kernel launches a batch, as the chip's, within rel 1e-6 of it."""
+    tspec = tcl.MLPSpec(DEEP)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+    chip = compile_chip(tspec, params=params, system=system, device=cuda)
+    fleet = shard_chip(chip, n_chips)
+    key = "crossbar_mvm" if system == "memristor" else "int8_matmul_fused"
+    for batch in (16384, 4097):
+        x = torch.rand((batch, 784),
+                       generator=torch.Generator().manual_seed(batch),
+                       device="cpu").to(cuda)
+        ops.reset_launch_counts()
+        got = fleet.stream(x)
+        assert ops.launch_counts()[key] == 3
+        assert got.shape == (batch, 10)
+        assert _rel(got.cpu(), chip.stream(x).cpu()) <= 1e-6

@@ -1,5 +1,5 @@
 """The card scripts' bookkeeping, on the CPU: what ``chip_smoke.py``
-reports under each key of a kernel row, its phases 5 and 6 run on the
+reports under each key of a kernel row, its phases 5 to 8 run on the
 kernels' plain versions with the launch counters bumped as launches
 would, how it refuses to run without a card, and how
 ``scripts/kernel_ab.py`` refuses to run without trees or a card.
@@ -156,6 +156,64 @@ def test_smoke_paper_apps_phase_on_the_cpu(cpu_smoke, capsys):
     assert {(r["app"], tuple(r["tiles"][0])) for r in line["nets"]
             if r["system"] == "memristor" and r["app"] in
             ("object", "ocr")} == {("object", (24, 2)), ("ocr", (20, 1))}
+
+
+def test_smoke_wide_digital_phase_on_the_cpu(cpu_smoke, capsys):
+    """Phase 7: four raw launches a layer (2 × 2 byte planes at 12
+    bits), no fused launch, the stream equal to the einsum path."""
+    import repro_torch.chip as chip_mod
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.kernels import ref
+    smoke, ops = cpu_smoke
+    chip, x, launches = smoke.phase_wide_digital(
+        torch, ops, ref, tcl, chip_mod, torch.device("cpu"), "cpu")
+    line = _phase_lines(capsys.readouterr().out)["wide_digital"]
+    assert line["launches_per_stream_call"] == {
+        "crossbar_mvm": 0, "int8_matmul_fused": 0, "int8_matmul_raw": 12}
+    # the stream's 12 and 12 an engine step of the serve drain
+    assert launches == {"crossbar_mvm": 0, "int8_matmul_fused": 0,
+                        "int8_matmul_raw": 12 * (1 + line["engine_steps"])}
+    assert line["planes"] == [[2, 784, 200], [2, 200, 100], [2, 100, 10]]
+    assert line["raw_plane_checks_exact"] == 12
+    assert x.shape == (256, 784) and chip.plan[0].tiles.bits == 12
+
+
+def test_smoke_fleet_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
+    """Phase 8: three launches a fleet batch, no compile, every stream
+    equal to the chip's, the drifting fleet's clock, and the router."""
+    import repro_torch.chip as chip_mod
+    from repro_torch.chip import compile as tcompile
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.variability import NoiseModel
+    smoke, ops = cpu_smoke
+    monkeypatch.setattr(smoke, "FLEET_RAGGED_B", 65)
+    spec = tcl.MLPSpec(smoke.DEEP)
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    drifting = chip_mod.compile_chip(spec, params=params,
+                                     noise=NoiseModel(**smoke.NOISE_KW),
+                                     device="cpu")
+    chips, x, launches = smoke.phase_fleet(torch, ops, tcompile, tcl,
+                                           chip_mod, drifting,
+                                           torch.device("cpu"), "cpu")
+    line = _phase_lines(capsys.readouterr().out)["fleet"]
+    assert line["compile_delta"] == 0
+    assert line["launches_per_fleet_batch"]["memristor"]["crossbar_mvm"] == 3
+    assert line["launches_per_fleet_batch"]["digital"][
+        "int8_matmul_fused"] == 3
+    for system in ("memristor", "digital"):
+        res = line["systems"][system]
+        assert all(res[k]["equal"] for k in ("batch", "ragged", "resize_2",
+                                             "resize_4", "reprogram"))
+        assert res["router"]["requests"] == 32 and \
+            res["router"]["items"] == 288
+    assert list(line["drifting"]) == ["0", "256", "512"]
+    assert drifting.items_streamed == 3 * 256
+    # 5 streams + 19 router steps a system, and the drifting fleet's 3
+    assert launches == {"crossbar_mvm": 3 * (5 + 19 + 3),
+                        "int8_matmul_fused": 3 * (5 + 19),
+                        "int8_matmul_raw": 0}
+    assert set(chips) == {"memristor", "digital"} and x.shape[0] == 256
 
 
 def test_smoke_refuses_without_a_card_or_the_repository(tmp_path):
