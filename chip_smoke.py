@@ -58,10 +58,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (32 requests of 9 windows) whose outputs match the direct stream,
      and ``fleet.report``; then fleet and chip timed alternately (ms a
      batch, device busy time, kernels a batch) and router steps/s
-     beside ``chip.serve(slots=16)`` on the same requests.
+     beside ``chip.serve(slots=16)`` on the same requests;
+  9. ranks: the deep app as a fleet of 2 processes × 2 logical chips
+     sharing the card, spawned as fresh interpreters in one gloo group
+     (``python -m repro_torch.fleet --distributed-worker``): each
+     rank's ``stream_local`` on its 8,192 rows against the chip (bit
+     for bit, three launches a call) and the one-process stream (rel
+     ≤ 1e-6), the lockstep ``DistributedFleetRouter`` on each rank's
+     sensor feed, ``stats_global`` identical on both ranks and equal to
+     ``assemble_stats`` of their rows; a lockstep fleet losing rank 1
+     and a federated one losing rank 0 mid-serve, the survivor
+     absorbing the dead feed with every uid completed once and no
+     compile; the cost of one ``any_across_hosts``, a lane batch's
+     ``stream_local`` in each rank alone and with both ranks on the
+     card, each rank's CUDA memory, and the lockstep router's
+     aggregate rate beside one process's ``FleetRouter`` with the same
+     lanes and requests.
 
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–8.
+(phases 2–3) and in phases 5–9 (phase 9: what the ranks report; a
+killed rank reports nothing).
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -122,6 +138,10 @@ FLEET_RAGGED_B = 4097   # a batch that 4 chips do not divide
 FLEET_TOL = 1e-6        # fleet vs chip: K1 runs at another batch size
 FLEET_LANES = 4         # router lanes a chip: 16 lanes, as serve(slots=16)
 FLEET_REQUESTS = 32     # sensor frames (9 windows of 28×28 each)
+RANKS = 2               # phase 9: processes sharing the one card
+RANK_CHIPS = 2          # logical chips a rank
+RANK_REQUESTS = 32      # sensor frames a rank's feed
+RANK_DRAINS = 4         # lockstep drains a rank; the first warms up
 
 
 class SmokeFailure(Exception):
@@ -1231,6 +1251,167 @@ def phase_fleet_times(torch, chip_mod, chips, x, card):
 
 
 # --------------------------------------------------------------------- #
+# phase 9: the fleet over ranks — processes sharing the one card
+# --------------------------------------------------------------------- #
+def _ranks_failed(summary) -> str:
+    """What a failed multi-process run says about itself."""
+    bad = {r: w.get("error") or {k: w[k] for k in w if k not in
+                                 ("memristor", "digital")}
+           for r, w in summary["workers"].items() if not w.get("ok")}
+    return json.dumps(bad)[:2000] if bad else "a parent-side check failed"
+
+
+def phase_ranks(torch, chip_mod, device, card):
+    """The deep app as a fleet of RANKS ranks × RANK_CHIPS logical chips
+    sharing the one card: the parent builds the kernels, spawns the
+    ranks (fresh interpreters, one gloo group through a ``file://``
+    store) through ``launch_local_fleet`` and reads each rank's last
+    JSON line. Lockstep fleet, both systems: each rank's
+    ``stream_local`` on its block of STREAM_B rows equals the chip's
+    stream of the same rows bit for bit with three kernel launches a
+    call and the one-process stream within FLEET_TOL; the lockstep
+    router drains each rank's ``StreamSource.for_host`` feed
+    RANK_DRAINS times with the same steps on every rank; ``stats_global``
+    is identical on every rank and equal to ``assemble_stats`` of the
+    ranks' own rows. Then rank 1 of a lockstep fleet and rank 0 of a
+    federated one are killed mid-serve, and the survivor absorbs the
+    dead feed with every uid accounted once and no compile. Last, the
+    lockstep router's aggregate rate against one process's
+    ``FleetRouter`` with the same lanes and requests. Returns the ranks'
+    kernel launches (the victims', killed, are not reported)."""
+    from repro_torch.data import SensorPipeline
+    from repro_torch.fleet import FleetRouter, StreamSource, shard_chip
+    from repro_torch.fleet import __main__ as fmain
+    on_card = torch.device("cuda" if device is None else device).type == \
+        "cuda"
+    t0 = time.perf_counter()
+    dist = fmain.run_distributed_selftest(
+        RANKS, RANK_CHIPS, device=device, rows=STREAM_B,
+        requests=RANK_REQUESTS, drains=RANK_DRAINS, verbose=False,
+        timeout=300.0)
+    dist_s = time.perf_counter() - t0
+    _require(dist["pass"], f"fleet of ranks: {_ranks_failed(dist)}")
+    workers = [dist["workers"][r] for r in sorted(dist["workers"])]
+    launches = {}
+    for w in workers:
+        for k, v in w["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    systems = {}
+    for system in fmain.SYSTEMS:
+        rows = [w[system] for w in workers]
+        for row in rows:
+            per = row["launches_per_call"]
+            want = {k: 3 if on_card and k == fmain.KERNEL[system] else 0
+                    for k in per}
+            _require(per == want and row["equal_chip"] and
+                     row["rel_one_process"] <= FLEET_TOL,
+                     f"{system} rank stream_local: {per}, "
+                     f"rel {row['rel_one_process']}")
+        drains = rows[0]["drains"]
+        timed = drains[1:] or drains
+        systems[system] = {
+            "launches_per_stream_local_call": [r["launches_per_call"]
+                                               for r in rows],
+            "equal_to_chip": [r["equal_chip"] for r in rows],
+            "rel_one_process": [r["rel_one_process"] for r in rows],
+            "steps_per_rank": [r["counts"][2] for r in rows],
+            "stats_global": rows[0]["stats_global"],
+            "lockstep_drains": drains,
+            # each rank's seconds a drain in the lockstep reduction
+            "lockstep_in_reduce_s": [[d["in_reduce_s"] for d in r["drains"]]
+                                     for r in rows],
+            "lockstep_items_per_s": _quartiles(
+                [d["items_per_s"] for d in timed])[0],
+            "lockstep_steps_per_s": _quartiles(
+                [d["steps_per_s"] for d in timed])[0]}
+
+    chaos = {}
+    for name, lockstep, kill_rank in (("lockstep_degrade", True, 1),
+                                      ("federated_chaos", False, 0)):
+        t0 = time.perf_counter()
+        res = fmain.run_chaos_selftest(
+            RANKS, kill_rank=kill_rank, kill_step=3, lockstep=lockstep,
+            chips_per_process=RANK_CHIPS, device=device, verbose=False,
+            timeout=300.0)
+        _require(res["pass"], f"{name}: {_ranks_failed(res)}")
+        (survivor,) = res["workers"].values()
+        _require(survivor["compile_delta"] == 0 and
+                 survivor["absorbed"] == [kill_rank] and
+                 survivor["degraded"] == lockstep and
+                 survivor["resize_rel"] == 0.0,
+                 f"{name} survivor {survivor}")
+        for k, v in survivor["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        chaos[name] = {
+            "killed_rank": kill_rank, "kill_step": 3,
+            "survivor": survivor["rank"],
+            "uids_completed_once": res["completed"],
+            "rejected": res["rejected"],
+            "victim_completed_at_death": res["victim_completed_at_death"],
+            "degraded_in_place": survivor["degraded"],
+            "compile_delta": survivor["compile_delta"],
+            "board_stats_requests": survivor["stats_requests"],
+            "board_stats_items": survivor["stats_items"],
+            "resized_chips": survivor["resized_chips"],
+            "resize_rel": survivor["resize_rel"],
+            "degraded_items_per_s": survivor["degraded_ips"],
+            "seconds": time.perf_counter() - t0}
+    _line({"phase": "ranks", "ranks": RANKS, "chips_per_rank": RANK_CHIPS,
+           "on": "one card", "rows": STREAM_B, "tol": FLEET_TOL,
+           "requests_per_rank": RANK_REQUESTS,
+           "lanes_per_rank": fmain.LANES_PER_CHIP * RANK_CHIPS,
+           "systems": systems, **chaos, "seconds": dist_s,
+           "launches": launches, "card": card})
+    _line({"metric": "any_across_hosts_us", "ranks": RANKS,
+           "calls": fmain.AAH_CALLS,
+           "per_rank": [w["any_across_hosts_us"] for w in workers],
+           "card": card})
+    _line({"metric": "rank_lane_stream_ms", "rows": fmain.LANES_PER_CHIP *
+           RANK_CHIPS, "calls": fmain.LANE_CALLS,
+           "per_rank": [w["lane_stream_ms"] for w in workers], "card": card})
+    if on_card:
+        _line({"metric": "rank_cuda_max_memory_allocated_bytes",
+               "per_rank": [w["cuda_max_memory_allocated_bytes"]
+                            for w in workers], "card": card})
+
+    # the same lanes and requests served by one process's FleetRouter
+    dev = torch.device("cuda", 0) if on_card else torch.device(device)
+    pipe = SensorPipeline(window=28, stride=18)
+    for system in fmain.SYSTEMS:
+        fleet = shard_chip(fmain._deep_chip(system, dev), RANKS * RANK_CHIPS)
+        rates = []
+        for _ in range(RANK_DRAINS):
+            router = FleetRouter(fleet, lanes_per_chip=fmain.LANES_PER_CHIP,
+                                 queue_limit=4)
+            router.serve(StreamSource(pipe, n_requests=RANKS * RANK_REQUESTS,
+                                      capacity=3))
+            s = router.stats()
+            _require(s.requests == RANKS * RANK_REQUESTS,
+                     f"one-process router served {s.requests}")
+            rates.append({"steps": s.steps, "wall_s": s.wall_s,
+                          "items_per_s": s.items_per_second,
+                          "steps_per_s": s.steps / s.wall_s})
+        timed = rates[1:] or rates
+        one = {"items_per_s": _quartiles([r["items_per_s"]
+                                          for r in timed])[0],
+               "steps_per_s": _quartiles([r["steps_per_s"]
+                                          for r in timed])[0]}
+        lock = systems[system]
+        _line({"metric": "ranks_router_rate", "system": system,
+               "lanes": fmain.LANES_PER_CHIP * RANKS * RANK_CHIPS,
+               "requests": RANKS * RANK_REQUESTS,
+               "lockstep_ranks": RANKS,
+               "lockstep_items_per_s": lock["lockstep_items_per_s"],
+               "lockstep_steps_per_s": lock["lockstep_steps_per_s"],
+               "lockstep_drains": lock["lockstep_drains"],
+               "one_process_items_per_s": one["items_per_s"],
+               "one_process_steps_per_s": one["steps_per_s"],
+               "one_process_drains": rates,
+               "first_drain_is_warm_up": len(rates) > 1, "card": card})
+    return launches
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -1288,10 +1469,11 @@ def main() -> int:
         kernels.append(phase_wide_digital_times(
             torch, ops, ref, tcl, wide, x_wide, launches, card))
         phase_fleet_times(torch, chip_mod, fleet_chips, x_fleet, card)
+        rank_launches = phase_ranks(torch, chip_mod, None, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
-                          fleet_launches):
+                          fleet_launches, rank_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

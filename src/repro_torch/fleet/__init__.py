@@ -1,6 +1,6 @@
 """repro_torch.fleet — one compiled chip served as a fleet of logical
-chips, with continuous batching (port of the single-process half of
-``repro.fleet``):
+chips, in one process or over ranks, with continuous batching and high
+availability (port of ``repro.fleet``):
 
   fleet = shard_chip(chip, n_chips)        # n logical chips, one image
   y = fleet.stream(x)                      # == chip.stream(x)
@@ -8,7 +8,14 @@ chips, with continuous batching (port of the single-process half of
   router.serve(StreamSource(SensorPipeline()))   # sensor-fed loop
   print(fleet.report(router))              # hardware + served roll-up
 
-Self-check:  PYTHONPATH=src python -m repro_torch.fleet --selftest
+  # one rank of a fleet of ranks (a gloo process group):
+  fleet = shard_chip(chip, mesh=make_distributed_fleet_mesh(2))
+  router = fleet.serve()                   # DistributedFleetRouter
+  router.serve(StreamSource.for_host(SensorPipeline()))
+  router.stats_global()                    # exact, on every rank
+
+Self-checks:  PYTHONPATH=src python -m repro_torch.fleet --selftest
+              (--distributed-selftest, --chaos-selftest)
 
 Submodule imports are lazy (PEP 562), as in the reference.
 """
@@ -20,6 +27,7 @@ _EXPORTS = {
     "ShardedChip": "repro_torch.fleet.shard",
     "shard_chip": "repro_torch.fleet.shard",
     "FleetRouter": "repro_torch.fleet.router",
+    "DistributedFleetRouter": "repro_torch.fleet.router",
     "FleetRequest": "repro_torch.fleet.router",
     "RouterStats": "repro_torch.fleet.router",
     "merge_stats": "repro_torch.fleet.router",
@@ -28,6 +36,16 @@ _EXPORTS = {
     "StreamSource": "repro_torch.fleet.source",
     "FleetReport": "repro_torch.fleet.report",
     "fleet_report": "repro_torch.fleet.report",
+    "HAConfig": "repro_torch.fleet.ha",
+    "HAFleetServer": "repro_torch.fleet.ha",
+    "HeartbeatBoard": "repro_torch.fleet.ha",
+    "FailureDetector": "repro_torch.fleet.ha",
+    "MembershipChange": "repro_torch.fleet.ha",
+    "StepGuard": "repro_torch.fleet.ha",
+    "degrade_to_local": "repro_torch.fleet.ha",
+    "local_fleet_mesh": "repro_torch.fleet.ha",
+    "source_snapshot": "repro_torch.fleet.ha",
+    "replay_requests": "repro_torch.fleet.ha",
 }
 
 __all__ = sorted(_EXPORTS)

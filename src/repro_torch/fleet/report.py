@@ -47,12 +47,27 @@ class FleetReport:
 
 def fleet_report(fleet, router=None) -> FleetReport:
     """Assemble the roll-up for a :class:`repro_torch.fleet.ShardedChip`,
-    optionally folding in a router's measured serving stats."""
+    optionally folding in a router's measured serving stats.
+
+    The hardware envelope always spans the WHOLE fleet, so on a
+    distributed fleet the served side must too: a
+    :class:`DistributedFleetRouter` contributes its exact cross-rank
+    ``stats_global()`` (a collective — every rank must assemble the
+    report together, the same lockstep rule as every other verb),
+    never its process-local counters, which would understate served
+    throughput by ~n_processes× against the fleet-wide capacity.
+    """
     chip_rep: ChipReport = fleet.chip.report()
     n = fleet.n_chips
     cap = chip_rep.capacity_items_per_second * \
         chip_rep.replication * n
-    served = None if router is None else router.stats()
+    if router is None:
+        served = None
+    elif getattr(fleet, "is_distributed", False) and \
+            hasattr(router, "stats_global"):
+        served = router.stats_global()
+    else:
+        served = router.stats()
     return FleetReport(
         n_chips=n,
         chip=chip_rep,

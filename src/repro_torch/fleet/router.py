@@ -1,8 +1,8 @@
 """Continuous-batching request router over a chip fleet.
 
-Port of the single-process half of ``repro.fleet.router``. The
-fixed-slot :class:`repro_torch.chip.ChipEngine` binds the generic
-slot-scheduled streaming contract to ONE chip; the router binds it to a
+Port of ``repro.fleet.router``. The fixed-slot
+:class:`repro_torch.chip.ChipEngine` binds the generic slot-scheduled
+streaming contract to ONE chip; the router binds it to a
 :class:`repro_torch.fleet.ShardedChip`: ``lanes_per_chip × n_chips``
 lanes, one batched fleet step per engine step, slot backfill between
 steps (arriving requests drop into lanes the moment one frees, never
@@ -15,9 +15,22 @@ sensor-stream frontend (:mod:`repro_torch.fleet.source`) pumps windowed
 items under backpressure while the router streams the active set —
 continuous traffic, not a pre-staged burst.
 
-The multi-process router (``DistributedFleetRouter``, its lockstep
-drain and the cross-host stat gathers) is not ported yet (ROADMAP.md,
-Queue 1 item 6b).
+:class:`DistributedFleetRouter` is the multi-process shape of the same
+contract, for a fleet whose mesh spans ranks
+(:func:`repro_torch.launch.mesh.make_distributed_fleet_mesh`). Every
+rank owns the lanes of ITS chips (``lanes_per_chip × n_local_chips``),
+feeds them from its own (seed, step)-pure source, and streams its own
+rows on its own device (``ShardedChip.stream_local``): request payloads
+and results never leave the rank that owns them. The ranks keep in
+lockstep over the gloo control plane only — every loop iteration
+reduces the ranks' "anything left?" flags (:func:`any_across_hosts`),
+so every rank runs the same number of engine steps and stops on the
+same iteration, idle steps included (``step_when_idle``).
+``stats_global()`` gathers every rank's counters and raw latencies and
+returns the exact fleet-wide :class:`RouterStats` on every rank.
+Gloo carries int64 and float64 natively, so counters and latencies
+cross ranks unsplit and unrounded (the reference splits counters into
+int32 halves and sends latencies as float32: jax's x32 CPU client).
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import allgather, process_count, process_index
 from repro_torch.serving.engine import (ItemRequest, ItemRequestState,
                                         ItemStreamScheduler)
 
@@ -129,7 +143,10 @@ def merge_stats(stats: Sequence[RouterStats]) -> RouterStats:
     recomputed from the summed per-host lane-step products; latency
     means are request-weighted. Percentiles CANNOT be merged from
     percentiles — here they take the max across hosts (a conservative
-    upper bound, exact when one host dominates).
+    upper bound, exact when one host dominates). When the raw
+    latencies are reachable, prefer
+    :meth:`DistributedFleetRouter.stats_global`, which gathers them
+    and is exact.
     """
     if not stats:
         return RouterStats(0, 0, 0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
@@ -164,10 +181,13 @@ class TimedStepMixin:
     the last-step stamp, ``_wall_s`` is the span the throughput and
     occupancy numbers divide by.
 
-    Also the attachment point for high-availability instrumentation:
-    with a guard attached (:meth:`attach_ha`), every engine step is
-    wrapped by the guard's ``run_step``. The guards (``fleet/ha.py``)
-    are not ported yet, so nothing attaches one here.
+    Also the attachment point for high-availability instrumentation
+    (:mod:`repro_torch.fleet.ha`): with a guard attached, every engine
+    step is wrapped by :meth:`StepGuard.run_step` — a heartbeat
+    published BEFORE entering the step, a step-deadline check of the
+    peers, and translation of a failed collective into
+    :class:`repro_torch.fleet.ha.MembershipChange` after the detector's
+    bounded retry/backoff confirms who died.
     """
 
     _t_start: Optional[float] = None
@@ -176,9 +196,8 @@ class TimedStepMixin:
     _step_listeners: tuple = ()
 
     def attach_ha(self, guard) -> None:
-        """Attach a step guard (heartbeat + step-deadline failure
-        detection around every engine step): any object whose
-        ``run_step(step_fn)`` runs the step and returns its result."""
+        """Attach a :class:`repro_torch.fleet.ha.StepGuard` (heartbeat +
+        step-deadline failure detection around every engine step)."""
         self._ha_guard = guard
 
     def add_step_listener(self, fn) -> None:
@@ -207,10 +226,15 @@ class TimedStepMixin:
 
 
 def stream_member(member, batch: np.ndarray, *,
-                  use_kernel: bool = True) -> np.ndarray:
+                  use_kernel: bool = True,
+                  local: bool = False) -> np.ndarray:
     """Host-side dispatch to a fleet member's preferred stream verb:
-    the host-to-host ``stream_host`` when the payload offers one, else
-    plain ``stream`` (a tensor on the card is read back to the host)."""
+    ``stream_local`` on a mesh that spans ranks (each rank's own rows),
+    else the host-to-host ``stream_host`` when the payload offers one,
+    else plain ``stream`` (a tensor on the card is read back to the
+    host)."""
+    if local:
+        return member.stream_local(batch, use_kernel=use_kernel)
     host = getattr(member, "stream_host", None)
     if host is not None:
         return host(batch, use_kernel=use_kernel)
@@ -218,6 +242,40 @@ def stream_member(member, batch: np.ndarray, *,
     if isinstance(out, torch.Tensor):
         return out.cpu().numpy()
     return np.asarray(out)
+
+
+class LockstepDrainMixin:
+    """Drain loop for SPMD routers: the local "anything left?" test is
+    replaced by an all-ranks OR so every rank executes the same number
+    of steps and breaks on the same iteration.
+
+    ``_spmd_lockstep`` is the degraded-mode switch: after a membership
+    change (:func:`repro_torch.fleet.ha.degrade_to_local` flips it False
+    on the instance) the surviving rank can no longer join collectives
+    with the dead peers, so every cross-rank reduction falls back to
+    its local value and the router behaves like its single-process
+    parent — same lanes, same counters, same accounting.
+    """
+
+    _spmd_lockstep = True
+
+    def _any_across_hosts(self, flag: bool) -> bool:
+        if not self._spmd_lockstep:
+            return bool(flag)
+        guard = getattr(self, "_ha_guard", None)
+        if guard is not None:
+            return guard.call(any_across_hosts, flag)
+        return any_across_hosts(flag)
+
+    def run_until_drained(self, max_steps: int = 10_000) -> List:
+        steps = 0
+        while steps < max_steps:
+            if not self._any_across_hosts(
+                    bool(self.queue or self.active)):
+                break
+            self.step()
+            steps += 1
+        return self.finished
 
 
 class FleetRouter(TimedStepMixin, ItemStreamScheduler):
@@ -237,10 +295,17 @@ class FleetRouter(TimedStepMixin, ItemStreamScheduler):
             raise ValueError("FleetRouter needs a streamable chip "
                              "(compiled with weights); this one is "
                              "analytic-only")
+        if getattr(fleet, "is_distributed", False) and \
+                not isinstance(self, DistributedFleetRouter):
+            raise ValueError(
+                "this fleet's mesh spans processes; one rank cannot "
+                "route for chips it does not drive — use "
+                "DistributedFleetRouter (every rank runs one, in "
+                "lockstep, over its local lanes)")
         n_chips = getattr(fleet, "n_chips", 1)
         super().__init__(fleet.d_in if hasattr(fleet, "d_in")
                          else fleet.dims[0],
-                         slots=lanes_per_chip * n_chips,
+                         slots=lanes_per_chip * self._lane_chips(fleet),
                          queue_limit=queue_limit,
                          step_when_idle=step_when_idle,
                          latency_reservoir=latency_reservoir)
@@ -249,22 +314,34 @@ class FleetRouter(TimedStepMixin, ItemStreamScheduler):
         self.lanes_per_chip = lanes_per_chip
         self.use_kernel = use_kernel
 
+    @staticmethod
+    def _lane_chips(fleet) -> int:
+        """How many chips this router schedules lanes for — all of
+        them here; only the local ones in the distributed variant."""
+        return getattr(fleet, "n_chips", 1)
+
     # ---------------- payload ------------------------------------- #
+    # True on the SPMD variant (each rank streams its local rows);
+    # degraded mode flips it back off on the instance
+    _local_stream = False
+
     def _stream_batch(self, batch: np.ndarray) -> np.ndarray:
-        return stream_member(self.fleet, batch, use_kernel=self.use_kernel)
+        return stream_member(self.fleet, batch, use_kernel=self.use_kernel,
+                             local=self._local_stream)
 
     # ---------------- elastic resize ------------------------------- #
-    def resize(self, n_chips: Optional[int] = None) -> None:
+    def resize(self, n_chips: Optional[int] = None, *, mesh=None) -> None:
         """Live fleet resize (grow OR shrink) under traffic: resize the
-        payload (``ShardedChip.resize`` — zero compile passes), then
-        rebuild this router's lane pool to ``lanes_per_chip × chips``,
-        evicting and front-requeueing the in-flight lanes so nothing is
-        dropped, duplicated or re-streamed. Payloads without a
-        ``resize`` method (a toy fleet in the property tests) just have
-        ``n_chips`` reassigned."""
+        payload (``ShardedChip.resize`` — zero compile passes; ``mesh``
+        rebuilds it on another mesh, as a survivor does after a
+        membership change), then rebuild this router's lane pool to
+        ``lanes_per_chip × chips``, evicting and front-requeueing the
+        in-flight lanes so nothing is dropped, duplicated or
+        re-streamed. Payloads without a ``resize`` method (a toy fleet
+        in the property tests) just have ``n_chips`` reassigned."""
         fleet_resize = getattr(self.fleet, "resize", None)
         if fleet_resize is not None:
-            fleet_resize(n_chips)
+            fleet_resize(n_chips, mesh=mesh)
         elif n_chips is not None and hasattr(self.fleet, "n_chips"):
             self.fleet.n_chips = n_chips
         else:
@@ -272,7 +349,7 @@ class FleetRouter(TimedStepMixin, ItemStreamScheduler):
                 f"resize: {type(self.fleet).__name__} has no resize() "
                 "and no n_chips to reassign")
         self.n_chips = getattr(self.fleet, "n_chips", n_chips)
-        self.resize_slots(self.lanes_per_chip * self.n_chips)
+        self.resize_slots(self.lanes_per_chip * self._lane_chips(self.fleet))
 
     # ---------------- the closed serving loop ---------------------- #
     def serve(self, source, *,
@@ -327,6 +404,14 @@ class FleetRouter(TimedStepMixin, ItemStreamScheduler):
                 "lanes": self.slots}
 
     # ---------------- accounting ----------------------------------- #
+    def _latency_arrays(self):
+        """Bounded per-request (latency, wait) vectors — the
+        scheduler's finish-time reservoirs, NOT re-extracted from the
+        unbounded finished-state list (exact for runs up to the
+        reservoir size; what the cross-rank gathers and the HA board
+        publish, so their wire/board size is bounded too)."""
+        return self._lat_all.values, self._wait_all.values
+
     def stats(self) -> RouterStats:
         return stats_from_states(self.finished,
                                  items=self.items_emitted,
@@ -336,3 +421,203 @@ class FleetRouter(TimedStepMixin, ItemStreamScheduler):
                                  rejected=self.rejected,
                                  lat_res=self._lat_all,
                                  wait_res=self._wait_all)
+
+
+class DistributedFleetRouter(LockstepDrainMixin, FleetRouter):
+    """The router's SPMD shape for a fleet whose mesh spans ranks.
+
+    EVERY rank of the process group constructs one of these over its
+    :class:`ShardedChip` (same chip, same mesh) and drives it with the
+    same call sequence. Each rank schedules only its local chips'
+    lanes, feeds them from its own source and streams them on its own
+    device; request payloads and results never leave the rank that
+    owns them. The cross-rank surface is the control plane only: the
+    lockstep reduction (:meth:`_any_across_hosts`) and the stat gathers
+    (:meth:`stats_global`, :meth:`metrics_global`), on gloo.
+
+    Lockstep obligations the base class cannot see are handled here:
+    ``step_when_idle`` is forced on (an idle rank steps as the busy ones
+    do, so every rank counts the same steps), and the drain/serve loops
+    replace their local "anything left?" tests with an all-ranks
+    reduction so every rank breaks on the same iteration.
+    """
+
+    def __init__(self, fleet, *, lanes_per_chip: int = 4,
+                 use_kernel: bool = True,
+                 queue_limit: Optional[int] = None,
+                 step_when_idle: bool = True):
+        if not getattr(fleet, "is_distributed", False):
+            raise ValueError(
+                "DistributedFleetRouter needs a fleet whose mesh "
+                "spans processes (make_distributed_fleet_mesh in a "
+                "process group); on one process use FleetRouter")
+        # accepted (ShardedChip.serve forwards router kwargs blindly)
+        # but not optional: a rank skipping its idle steps would fall
+        # out of step with the ranks that still have traffic
+        if not step_when_idle:
+            raise ValueError(
+                "DistributedFleetRouter always steps when idle: the "
+                "ranks step in lockstep, and a locally idle rank that "
+                "skipped its steps would fall out of step with the "
+                "ranks that still have traffic")
+        super().__init__(fleet, lanes_per_chip=lanes_per_chip,
+                         use_kernel=use_kernel, queue_limit=queue_limit,
+                         step_when_idle=True)
+
+    @staticmethod
+    def _lane_chips(fleet) -> int:
+        return fleet.n_local_chips
+
+    # ---------------- payload ------------------------------------- #
+    # (local slots, d_in) → (local slots, d_out): each rank streams its
+    # lanes' rows on its own device
+    _local_stream = True
+
+    # ---------------- lockstep control plane ----------------------- #
+    def _serve_decision(self, source) -> str:
+        """The fleet-wide continue/stop decision: the serve loop runs
+        until NO rank has queued, active, or un-pumped traffic, so a
+        rank that drained early keeps stepping with the busy ranks.
+        Lockstep holds because every rank reduces the same flags on the
+        same iteration — there is no local "skip" path. Degraded mode
+        (``_spmd_lockstep`` off) falls back to the single-process
+        decision."""
+        if not self._spmd_lockstep:
+            return FleetRouter._serve_decision(self, source)
+        more = bool(self.queue or self.active or
+                    not source.exhausted)
+        return "step" if self._any_across_hosts(more) else "stop"
+
+    # ---------------- fleet-wide accounting ------------------------ #
+    def stats_global(self) -> RouterStats:
+        """The exact fleet-wide roll-up, assembled on every rank (ranks
+        get identical results; any rank can report — there is no
+        rank-0 pinning). Counters are allgathered; per-request
+        latency/wait vectors are padded to the fleet-wide max length
+        and allgathered too, so the percentiles are computed over every
+        finished request in the fleet — not merged from per-rank
+        percentiles. Collective: every rank must call together. In
+        degraded mode (after a membership change) the dead peers cannot
+        join a collective, so this returns the LOCAL stats — the
+        fleet-wide roll-up across survivors is then the heartbeat-board
+        one (:meth:`repro_torch.fleet.ha.HAFleetServer.stats_global`)."""
+        if not self._spmd_lockstep or process_count() == 1:
+            return self.stats()
+        lat, wait = self._latency_arrays()
+        return gather_global_stats(
+            lat, wait, requests=len(self.finished),
+            items=self.items_emitted, steps=self.steps,
+            rejected=self.rejected, lanes=self.slots,
+            wall_s=self._wall_s())
+
+    def _obs_tags(self):
+        tags = FleetRouter._obs_tags(self)
+        tags["host"] = process_index()
+        return tags
+
+    def metrics_global(self) -> dict:
+        """Fleet-wide merge of every rank's ``repro_torch.obs`` registry
+        snapshot (collective while in lockstep — every rank must call
+        together and every rank gets the same merged view; degraded
+        mode falls back to the local snapshot)."""
+        from repro_torch.obs import allgather_snapshots, current, \
+            merge_snapshots
+
+        snap = current().metrics.snapshot()
+        if not self._spmd_lockstep or process_count() == 1:
+            return snap
+        return merge_snapshots(allgather_snapshots(snap))
+
+
+# ------------------------------------------------------------------- #
+# cross-rank primitives (gloo, CPU tensors: the control plane)
+# ------------------------------------------------------------------- #
+def any_across_hosts(flag: bool) -> bool:
+    """OR-reduce a python bool over all ranks (one tiny gloo allgather;
+    every rank must call this together)."""
+    if process_count() == 1:
+        return bool(flag)
+    flags = allgather(torch.tensor([1 if flag else 0], dtype=torch.int32))
+    return bool(flags.sum() > 0)
+
+
+def allgather_i64(counts: np.ndarray) -> np.ndarray:
+    """Allgather a (n,) int64 counter vector → (ranks, n). Gloo
+    carries int64 as it is, so every int64 count crosses exactly
+    (the reference's int32 halves are exact below 2⁶², the same
+    values)."""
+    counts = torch.from_numpy(np.ascontiguousarray(counts, np.int64))
+    return allgather(counts).numpy()
+
+
+def allgather_latencies(lat: np.ndarray, wait: np.ndarray,
+                        n_max: int):
+    """Allgather per-request latency/wait vectors, NaN-padded to the
+    fleet-wide max length ``n_max`` (float64 on the wire: no rounding).
+    Returns the concatenated fleet-wide (lat, wait), rank-major, with
+    the padding stripped."""
+    if not n_max:
+        return np.zeros((0,)), np.zeros((0,))
+    pad = np.full((2, n_max), np.nan, np.float64)
+    pad[0, :lat.size] = lat
+    pad[1, :wait.size] = wait
+    gathered = allgather(torch.from_numpy(pad)).numpy()
+    lat_all = gathered[:, 0, :].ravel()
+    wait_all = gathered[:, 1, :].ravel()
+    return lat_all[~np.isnan(lat_all)], wait_all[~np.isnan(wait_all)]
+
+
+def assemble_stats(counts_all: np.ndarray, walls_all: np.ndarray,
+                   lat_all: np.ndarray,
+                   wait_all: np.ndarray) -> RouterStats:
+    """The exact fleet-wide roll-up FORMULA, independent of how the
+    per-rank rows got here: ``counts_all`` is a (ranks, 5) int array
+    of (requests, items, steps, rejected, lanes) rows, ``walls_all``
+    the per-rank wall clocks, ``lat_all``/``wait_all`` the
+    concatenated per-request vectors. Shared by the collective
+    :func:`gather_global_stats` and the heartbeat-board roll-up
+    (:mod:`repro_torch.fleet.ha`), so lockstep and degraded-mode
+    accounting can never drift apart."""
+    counts_all = np.asarray(counts_all, np.int64).reshape(-1, 5)
+    total_items = int(counts_all[:, 1].sum())
+    lane_steps = int((counts_all[:, 2] * counts_all[:, 4]).sum())
+    wall = float(np.asarray(walls_all).max()) if np.size(walls_all) \
+        else 0.0
+    lat_all = np.asarray(lat_all, np.float64).ravel()
+    wait_all = np.asarray(wait_all, np.float64).ravel()
+    return RouterStats(
+        requests=int(counts_all[:, 0].sum()),
+        items=total_items,
+        steps=int(counts_all[:, 2].max()) if counts_all.size else 0,
+        wall_s=wall,
+        items_per_second=total_items / wall if wall else 0.0,
+        occupancy=total_items / lane_steps if lane_steps else 0.0,
+        wait_s_mean=float(wait_all.mean()) if wait_all.size else 0.0,
+        latency_s_mean=float(lat_all.mean()) if lat_all.size else 0.0,
+        latency_s_p50=float(np.percentile(lat_all, 50))
+        if lat_all.size else 0.0,
+        latency_s_p95=float(np.percentile(lat_all, 95))
+        if lat_all.size else 0.0,
+        rejected=int(counts_all[:, 3].sum()),
+        lanes=int(counts_all[:, 4].sum()),
+    )
+
+
+def gather_global_stats(lat: np.ndarray, wait: np.ndarray, *,
+                        requests: int, items: int, steps: int,
+                        rejected: int, lanes: int,
+                        wall_s: float) -> RouterStats:
+    """Assemble the exact cross-rank :class:`RouterStats` from this
+    rank's numbers (collective: every rank must call together)."""
+    counts_all = allgather_i64(np.asarray(
+        [requests, items, steps, rejected, lanes], np.int64))
+    walls_all = allgather(torch.tensor([float(wall_s)],
+                                       dtype=torch.float64)).numpy()
+    # pad to the fleet-wide max VECTOR length, not the max request
+    # count: the vectors are bounded reservoirs (repro_torch.obs), so
+    # the wire size stays bounded however long the serve ran
+    sizes_all = allgather_i64(np.asarray([lat.size, wait.size], np.int64))
+    lat_all, wait_all = allgather_latencies(np.asarray(lat, np.float64),
+                                            np.asarray(wait, np.float64),
+                                            int(sizes_all.max()))
+    return assemble_stats(counts_all, walls_all, lat_all, wait_all)

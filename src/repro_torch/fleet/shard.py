@@ -1,26 +1,34 @@
 """Serving one compiled chip as a fleet of identical logical chips.
 
-Port of the single-process half of ``repro.fleet.shard``. The paper
-scales a single streaming multicore chip; the fleet scales the *chip*:
-``shard_chip`` serves ``n_chips`` copies of one
-:class:`repro_torch.chip.CompiledChip`'s programmed plan and deals the
-item batch across them (data-parallel replica fan-out — the §V.C
-replication argument lifted from cores-within-a-chip to
+Port of ``repro.fleet.shard``. The paper scales a single streaming
+multicore chip; the fleet scales the *chip*: ``shard_chip`` serves the
+chips of a 1-D ``"chip"`` mesh (:class:`repro_torch.launch.mesh.FleetMesh`)
+from one :class:`repro_torch.chip.CompiledChip`'s programmed plan and
+deals the item batch across them (data-parallel replica fan-out — the
+§V.C replication argument lifted from cores-within-a-chip to
 chips-within-a-fleet).
 
 The reference places one plan copy on every device of a mesh and runs
-``stream_pipeline`` on each device's shard. Here every logical chip
-lives on the chip's one device and shares its one programmed image,
-so the chip axis is folded into the batch, as ``stream_pipeline``
-already folds the replica axis: a fleet batch is streamed in ONE
-``stream_pipeline`` call — the launches of one chip's batch, never a
-loop over the chips — and the fleet's rows are the single chip's.
-Dealing rows out to chips (the reference pads a batch to
+``stream_pipeline`` on each device's shard. Here a process — a rank —
+drives one device, and its logical chips live on that device and share
+its one programmed image, so the chip axis is folded into the batch, as
+``stream_pipeline`` already folds the replica axis: a batch is streamed
+in ONE ``stream_pipeline`` call — the launches of one chip's batch,
+never a loop over the chips — and the fleet's rows are the single
+chip's. Dealing rows out to chips (the reference pads a batch to
 ``n_chips × per`` rows) has no work to do while every logical chip
 shares the one device and its one image.
 
-One plan copy per GPU, ``stream_local`` and multi-process fleets are
-not ported yet (ROADMAP.md, Queue 1 item 6b).
+The mesh may span ranks (:func:`repro_torch.launch.mesh.make_distributed_fleet_mesh`
+in a gloo process group): each rank compiles its own identical chip
+from the same seed (programming the fleet moves no bytes between
+ranks) and serves its own row block through :meth:`ShardedChip.stream_local`
+— its rows in, its outputs back, on its own device. One rank per GPU
+is the torch form of the reference's one plan copy per GPU
+(``replicate_to_mesh``). The global-batch ``stream`` / ``stream_host``
+verbs refuse on such a mesh: a rank cannot stream the other ranks'
+rows, and pretending otherwise would mean shipping every batch through
+one rank.
 """
 from __future__ import annotations
 
@@ -34,30 +42,24 @@ import torch
 from repro_torch.chip.compile import (CompiledChip, reprogram_chip,
                                       stream_pipeline, validate_stream_rate,
                                       warn_once_deprecated)
+from repro_torch.launch.mesh import (FleetMesh, make_fleet_mesh,
+                                     mesh_spans_processes, rank_device)
 from repro_torch.obs.core import current as _obs_current
 
-_NOT_PORTED = ("multi-process fleets (stream_local, local chips, one plan "
-               "copy per GPU) are not ported yet: ROADMAP.md, Queue 1 "
-               "item 6b")
 _REMEDY = ("Add chips to the fleet, use a larger core geometry, or lower "
            "the fleet target rate.")
 
 
-def default_fleet_size(chip: CompiledChip) -> int:
-    """The number of visible CUDA devices for a CUDA chip, 1 for a CPU
-    chip."""
-    if chip.device.type == "cuda":
-        return torch.cuda.device_count()
-    return 1
-
-
 @dataclasses.dataclass
 class ShardedChip:
-    """One compiled chip served as ``n_chips`` identical logical chips.
+    """One compiled chip served as the ``mesh``'s identical logical
+    chips.
 
     ``stream`` streams the batch through the one programmed plan —
     identical to the single chip, ``n_chips``× the lanes.
     ``serve``/``report`` mirror the CompiledChip verbs at fleet scale.
+    On a mesh that spans ranks use ``stream_local`` (and ``serve``,
+    which then gives the lockstep router); see the module docstring.
 
     ``items_per_second`` is an optional FLEET-level target rate,
     validated against ``replication × n_chips`` copies of the chip's
@@ -69,7 +71,7 @@ class ShardedChip:
     compile's verdict already covers it.
     """
     chip: CompiledChip
-    n_chips: int
+    mesh: FleetMesh
     items_per_second: float = 0.0
     strict_rate: bool = False
 
@@ -78,9 +80,7 @@ class ShardedChip:
             raise ValueError(
                 "shard_chip needs a streamable chip (compiled with "
                 "weights); this one is analytic-only")
-        if self.n_chips < 1:
-            raise ValueError(f"shard_chip: n_chips must be >= 1, got "
-                             f"{self.n_chips}")
+        self._check_mesh(self.mesh)
         if not (self.chip.rate_validated and
                 self.items_per_second == self.chip.items_per_second):
             # point the warning at shard_chip's caller: stacklevel
@@ -98,19 +98,31 @@ class ShardedChip:
             remedy=_REMEDY, stacklevel=stacklevel,
             chip_replicas=self.chip.replication)
 
+    def _check_mesh(self, mesh: FleetMesh) -> None:
+        if mesh.device != rank_device(self.chip.device):
+            raise ValueError(
+                f"the mesh puts this process's chips on {mesh.device}, "
+                f"but the chip is programmed on {self.chip.device}")
+
     # ------------------------------------------------------------ #
     @property
-    def is_distributed(self) -> bool:
-        """Always False: this fleet lives in one process."""
-        return False
+    def n_chips(self) -> int:
+        return self.mesh.size
 
     @property
-    def local_chips(self):
-        raise NotImplementedError(_NOT_PORTED)
+    def is_distributed(self) -> bool:
+        """True when the fleet's mesh spans ranks."""
+        return mesh_spans_processes(self.mesh)
+
+    @property
+    def local_chips(self) -> list:
+        """This process's chips (their places on the ``"chip"`` axis),
+        in row-block order."""
+        return self.mesh.local_chips
 
     @property
     def n_local_chips(self) -> int:
-        raise NotImplementedError(_NOT_PORTED)
+        return len(self.local_chips)
 
     @property
     def d_in(self) -> int:
@@ -139,12 +151,14 @@ class ShardedChip:
                           dtype=torch.float32, device=self.chip.device)
 
     # ------------------------------------------------------------ #
-    def stream(self, x, *, use_kernel: bool = True) -> torch.Tensor:
-        """Stream a batch through the fleet: x (..., d_in) tensor or
-        array → (..., d_out) on the chip's device, in x's dtype. The
-        whole batch goes through ONE ``stream_pipeline`` call. Under
-        drift the batch sees the source chip's age, and the source
-        chip's clock advances by the batch."""
+    def _stream(self, x, use_kernel: bool, span: str,
+                args: dict) -> torch.Tensor:
+        """x (..., d_in) → (..., d_out) on the chip's device, in x's
+        dtype, through ONE ``stream_pipeline`` call. Under drift the
+        batch sees the source chip's age, and the source chip's clock
+        advances by the batch (each rank advances its own copy of the
+        clock by its OWN rows; equal rows a call keep the ranks' ages
+        in agreement)."""
         tel = _obs_current()
         t0 = time.perf_counter() if tel.active else 0.0
         x = torch.as_tensor(x, device=self.chip.device)
@@ -159,10 +173,24 @@ class ShardedChip:
         if tel.active:
             if out.device.type == "cuda":
                 torch.cuda.synchronize(out.device)
-            tel.tracer.complete(
-                "fleet.stream", t0, time.perf_counter() - t0, tid=0,
-                cat="fleet", args={"rows": int(B), "chips": self.n_chips})
+            tel.tracer.complete(span, t0, time.perf_counter() - t0, tid=0,
+                                cat="fleet", args={"rows": int(B), **args})
         return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+
+    def stream(self, x, *, use_kernel: bool = True) -> torch.Tensor:
+        """Stream a batch through the fleet: x (..., d_in) tensor or
+        array → (..., d_out) on the chip's device, in x's dtype
+        (:meth:`_stream`). Refuses on a mesh that spans ranks: use
+        :meth:`stream_local` there."""
+        if self.is_distributed:
+            raise ValueError(
+                "stream/stream_host serve the whole fleet's batch from "
+                "this process, but the mesh spans "
+                f"{self.mesh.n_processes} processes. Use "
+                "stream_local(x_local): every rank passes its own rows "
+                "and reads back its own outputs.")
+        return self._stream(x, use_kernel, "fleet.stream",
+                            {"chips": self.n_chips})
 
     def stream_host(self, x, *, use_kernel: bool = True) -> np.ndarray:
         """Host-to-host fleet stream: x (..., d_in) → (..., d_out) as a
@@ -174,23 +202,38 @@ class ShardedChip:
         return out.cpu().numpy()
 
     def stream_local(self, x, *, use_kernel: bool = True) -> np.ndarray:
-        raise NotImplementedError(_NOT_PORTED)
+        """Process-local stream: x (..., d_in) is THIS rank's rows;
+        returns this rank's (..., d_out) outputs as a float32 numpy
+        array. The rows are streamed on this rank's device through the
+        one ``stream_pipeline`` call, so no item bytes ever cross ranks
+        — the fleet-scale analogue of the paper's sensors feeding each
+        chip's TSV interface directly. On a one-process mesh it equals
+        :meth:`stream_host` (one process owns all rows)."""
+        out = self._stream(torch.as_tensor(np.asarray(x, np.float32)),
+                           use_kernel, "fleet.stream_local",
+                           {"local_chips": self.n_local_chips})
+        return out.cpu().numpy()
 
     def __call__(self, x, **kw) -> torch.Tensor:
         return self.stream(x, **kw)
 
-    def resize(self, n_chips: Optional[int] = None) -> None:
-        """Elastic resize: serve the SAME programmed plan as
-        ``n_chips`` logical chips (default :func:`default_fleet_size`) —
-        nothing is re-placed and nothing compiles (``compile_count()``
-        is the pin). The fleet rate target is re-validated against the
-        new capacity: shrinking below the declared
-        ``items_per_second`` warns (or raises under ``strict_rate``),
-        the degraded-mode SLO signal."""
-        n = default_fleet_size(self.chip) if n_chips is None else n_chips
-        if n < 1:
-            raise ValueError(f"resize: n_chips must be >= 1, got {n}")
-        self.n_chips = n
+    def resize(self, n_chips: Optional[int] = None, *,
+               mesh: Optional[FleetMesh] = None) -> None:
+        """Elastic resize: serve the SAME programmed plan on a new
+        ``"chip"`` mesh (grown, shrunk, or rebuilt on a survivor after
+        a membership change) — nothing is re-placed and nothing
+        compiles (``compile_count()`` is the pin). Default: a
+        one-process mesh of ``n_chips`` logical chips on the chip's
+        device (:func:`repro_torch.launch.mesh.make_fleet_mesh`); pass
+        ``mesh`` to rebuild on another one
+        (:func:`repro_torch.fleet.ha.local_fleet_mesh`). The fleet rate
+        target is re-validated against the new capacity: shrinking
+        below the declared ``items_per_second`` warns (or raises under
+        ``strict_rate``), the degraded-mode SLO signal."""
+        if mesh is None:
+            mesh = make_fleet_mesh(n_chips, device=self.chip.device)
+        self._check_mesh(mesh)
+        self.mesh = mesh
         self._validate("ShardedChip.resize", stacklevel=4)
 
     def reprogram(self, params, **kw) -> None:
@@ -203,7 +246,9 @@ class ShardedChip:
 
     def serve(self, *, lanes_per_chip: int = 4, **kw):
         """A continuous-batching router over this fleet: a
-        :class:`repro_torch.fleet.FleetRouter`.
+        :class:`repro_torch.fleet.FleetRouter`, or its lockstep variant
+        :class:`repro_torch.fleet.DistributedFleetRouter` when the mesh
+        spans ranks.
 
         Deprecated as a user entry point: ``deploy()`` wires the same
         router from one declarative spec (and adds multi-app
@@ -213,8 +258,11 @@ class ShardedChip:
             "ShardedChip.serve() is deprecated as a direct entry "
             "point; declare the fleet with repro_torch.deploy.deploy(spec) "
             "and use Deployment.submit/serve (same router underneath)")
-        from repro_torch.fleet.router import FleetRouter
-        return FleetRouter(self, lanes_per_chip=lanes_per_chip, **kw)
+        from repro_torch.fleet.router import (DistributedFleetRouter,
+                                              FleetRouter)
+        router = DistributedFleetRouter if self.is_distributed \
+            else FleetRouter
+        return router(self, lanes_per_chip=lanes_per_chip, **kw)
 
     def report(self, router=None):
         """Fleet-level roll-up of the per-chip Tables II–VI report."""
@@ -223,16 +271,18 @@ class ShardedChip:
 
 
 def shard_chip(chip: CompiledChip, n_chips: Optional[int] = None, *,
+               mesh: Optional[FleetMesh] = None,
                items_per_second: float = 0.0,
                strict_rate: bool = False) -> ShardedChip:
-    """Serve one compiled chip as ``n_chips`` logical chips (default
-    :func:`default_fleet_size`; more are allowed on one device, since
-    the chips are logical). ``items_per_second`` declares the rate
-    target for the WHOLE fleet; it is validated against
-    ``replication × n_chips`` copies of the chip's routed TDM fabric
-    (warn / ``strict_rate=True`` raise) — the single-chip compile
-    cannot have vouched for it."""
-    if n_chips is None:
-        n_chips = default_fleet_size(chip)
-    return ShardedChip(chip, n_chips, items_per_second=items_per_second,
+    """Serve one compiled chip as ``n_chips`` logical chips on its
+    device (default: the visible CUDA devices for a card's chip, 1 for
+    a CPU chip; more are allowed, since the chips are logical), or on
+    an existing ``mesh`` — a ``make_distributed_fleet_mesh`` spanning
+    ranks included. ``items_per_second`` declares the rate target for
+    the WHOLE fleet; it is validated against ``replication × n_chips``
+    copies of the chip's routed TDM fabric (warn / ``strict_rate=True``
+    raise) — the single-chip compile cannot have vouched for it."""
+    if mesh is None:
+        mesh = make_fleet_mesh(n_chips, device=chip.device)
+    return ShardedChip(chip, mesh, items_per_second=items_per_second,
                        strict_rate=strict_rate)

@@ -1,11 +1,15 @@
 """repro_torch.obs — the telemetry the serving loop records into.
 
-Port of the parts of ``repro.obs`` the chip's serving path uses: the
-process-wide :class:`Telemetry` switchboard, the metrics registry with
-bounded reservoirs, and the Chrome/Perfetto span tracer. Numpy only.
+Port of the parts of ``repro.obs`` the chip's and the fleet's serving
+paths use: the process-wide :class:`Telemetry` switchboard, the metrics
+registry with bounded reservoirs, the Chrome/Perfetto span tracer, and
+the cross-rank snapshot gather (:func:`allgather_snapshots`) that,
+with :func:`merge_snapshots`, rolls every rank's registry into one
+fleet-wide view.
 """
 from repro_torch.obs.core import (NULL_RECORDER, NullRecorder, StepRecorder,
                                   Telemetry, configure, current, disable)
+from repro_torch.obs.dist import allgather_snapshots
 from repro_torch.obs.metrics import (DEFAULT_RESERVOIR, Counter, Gauge,
                                      Histogram, MetricsRegistry, Reservoir,
                                      merge_snapshots)
@@ -15,5 +19,6 @@ __all__ = [
     "Counter", "DEFAULT_RESERVOIR", "Gauge", "Histogram",
     "LANE_TID_BASE", "MetricsRegistry", "NULL_RECORDER",
     "NullRecorder", "Reservoir", "StepRecorder", "Telemetry",
-    "Tracer", "configure", "current", "disable", "merge_snapshots",
+    "Tracer", "allgather_snapshots", "configure", "current", "disable",
+    "merge_snapshots",
 ]

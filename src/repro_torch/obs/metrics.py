@@ -16,7 +16,7 @@ always, and the raw values kept EXACTLY up to ``cap`` samples — so
 p50/p95/p99 over short runs are identical to percentiles of the raw
 list — then deterministic Algorithm-R subsampling (a fixed seed, so a
 seeded run reproduces bit-identically). The reservoir is also what
-bounds :class:`repro.fleet.RouterStats` latency memory and the
+bounds :class:`repro_torch.fleet.RouterStats` latency memory and the
 ``allgather_latencies`` wire size over a long serve.
 
 A registry constructed with ``enabled=False`` hands out a single
@@ -249,7 +249,7 @@ def merge_snapshots(snapshots: Iterable[Optional[dict]]) -> dict:
     """Fleet-wide roll-up of per-host registry snapshots: counters
     add, gauges take the max, histograms merge exactly on
     count/sum/min/max and concatenate (bounded) reservoir samples —
-    the same spirit as :func:`repro.fleet.router.assemble_stats`, for
+    the same spirit as :func:`repro_torch.fleet.router.assemble_stats`, for
     the whole registry at once."""
     snaps = [s for s in snapshots if s]
     out: dict = {"counters": {}, "gauges": {}, "histograms": {}}

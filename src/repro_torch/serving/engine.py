@@ -67,11 +67,11 @@ class SlotScheduler:
 
     ``step_when_idle`` makes ``step()`` run ``_step_active`` even with
     no active lane. A single-process engine never wants this (an idle
-    step is wasted work), but an SPMD engine whose step is a collective
-    over a multi-process fleet (:class:`repro.fleet.DistributedFleetRouter`)
-    MUST enter the batched computation on every rank in lockstep — a
-    locally idle rank that skipped it would deadlock the ranks that
-    still have traffic.
+    step is wasted work), but a lockstep engine over a multi-process
+    fleet (:class:`repro_torch.fleet.DistributedFleetRouter`) steps on
+    every rank together, so that every rank counts the same steps — a
+    locally idle rank that skipped its steps would fall out of step
+    with the ranks that still have traffic.
     """
 
     def __init__(self, slots: int, *, queue_limit: Optional[int] = None,
@@ -591,7 +591,7 @@ class ItemStreamScheduler(KeyedItemStreamScheduler):
     advanced through one ``_stream_batch`` call per engine step — the
     historic contract the compiled chip
     (:class:`repro_torch.chip.ChipEngine`) and the sharded multi-chip fleet
-    (:class:`repro.fleet.FleetRouter`) plug into.
+    (:class:`repro_torch.fleet.FleetRouter`) plug into.
     """
 
     def __init__(self, d_in: int, *, slots: int = 4,

@@ -166,12 +166,17 @@ def test_default_fleet_size_is_one_for_a_cpu_chip(chip):
 
 
 def test_multi_process_verbs_are_not_ported(chip):
+    """The multi-process verbs (ported since: ROADMAP Queue 1 item 6b)
+    on a one-process fleet: every chip is local, ``stream_local`` is the
+    whole stream, and the lockstep router refuses the fleet."""
     fleet = shard_chip(chip, 2)
     assert fleet.is_distributed is False
-    for verb in (lambda: fleet.stream_local(_x(1, 2).numpy()),
-                 lambda: fleet.local_chips, lambda: fleet.n_local_chips):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            verb()
+    assert fleet.local_chips == [0, 1] and fleet.n_local_chips == 2
+    x = _x(1, 2).numpy()
+    np.testing.assert_array_equal(fleet.stream_local(x),
+                                  fleet.stream_host(x))
+    with pytest.raises(ValueError, match="spans processes"):
+        trouter.DistributedFleetRouter(fleet)
 
 
 @pytest.mark.parametrize("system,bits", SYSTEMS)

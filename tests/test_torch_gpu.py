@@ -8,7 +8,8 @@ and ocr nets (24 and 20 row chunks; digital rows of 3072 and 2500
 bytes) through the kernels, layer by layer against the einsum path; a
 digital chip at 12 and 16 bits through the raw int8 kernel's byte
 planes, equal to the einsum path to the bit; and the deep app as a
-fleet of 1–4 logical chips against the chip (rel ≤ 1e-6).
+fleet of 1–4 logical chips against the chip (rel ≤ 1e-6), a fleet of
+two ranks sharing the card (and one of them killed mid-serve).
 
 This file imports no JAX (the machine with the card has none), so it
 runs there on its own:
@@ -356,3 +357,55 @@ def test_gpu_fleet_stream_matches_chip(cuda, system, n_chips):
         assert ops.launch_counts()[key] == 3
         assert got.shape == (batch, 10)
         assert _rel(got.cpu(), chip.stream(x).cpu()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["memristor", "digital"])
+def test_gpu_stream_local_goes_through_the_kernels(cuda, system):
+    """A one-process fleet's ``stream_local`` on the card: the whole
+    stream, three kernel launches a call, equal to ``stream_host`` to
+    the bit."""
+    tspec = tcl.MLPSpec(DEEP)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+    chip = compile_chip(tspec, params=params, system=system, device=cuda)
+    fleet = shard_chip(chip, 2)
+    key = "crossbar_mvm" if system == "memristor" else "int8_matmul_fused"
+    x = torch.rand((8192, 784),
+                   generator=torch.Generator().manual_seed(3)).numpy()
+    ops.reset_launch_counts()
+    got = fleet.stream_local(x)
+    assert ops.launch_counts()[key] == 3
+    np.testing.assert_array_equal(got, fleet.stream_host(x))
+
+
+@pytest.mark.gpu
+def test_gpu_two_rank_fleet_on_the_card(cuda):
+    """Two ranks (fresh interpreters, one gloo group) share the card:
+    each rank's ``stream_local`` is the chip's to the bit with three
+    launches a call, and the lockstep roll-up holds."""
+    from repro_torch.fleet import __main__ as fmain
+    summary = fmain.run_distributed_selftest(2, 2, rows=8192, requests=6,
+                                             verbose=False, timeout=300.0)
+    assert summary["pass"], summary
+    for w in summary["workers"].values():
+        assert w["device"] == "cuda:0"
+        for system in fmain.SYSTEMS:
+            per_call = w[system]["launches_per_call"]
+            assert per_call[fmain.KERNEL[system]] == 3
+            assert w[system]["equal_chip"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lockstep,kill_rank", [(False, 0), (True, 1)])
+def test_gpu_chaos_on_the_card(cuda, lockstep, kill_rank):
+    """Kill a rank mid-serve on the card: the survivor absorbs its feed
+    through the crossbar kernel with exact accounting."""
+    from repro_torch.fleet import __main__ as fmain
+    summary = fmain.run_chaos_selftest(2, kill_rank=kill_rank,
+                                       lockstep=lockstep, verbose=False,
+                                       timeout=300.0)
+    assert summary["pass"], summary
+    (survivor,) = summary["workers"].values()
+    assert survivor["launches"]["crossbar_mvm"] > 0
+    assert survivor["compile_delta"] == 0

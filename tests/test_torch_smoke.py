@@ -1,7 +1,7 @@
 """The card scripts' bookkeeping, on the CPU: what ``chip_smoke.py``
-reports under each key of a kernel row, its phases 5 to 8 run on the
+reports under each key of a kernel row, its phases 5 to 9 run on the
 kernels' plain versions with the launch counters bumped as launches
-would, how it refuses to run without a card, and how
+would (phase 9, which kills ranks, under the opt-in ``chaos`` marker), how it refuses to run without a card, and how
 ``scripts/kernel_ab.py`` refuses to run without trees or a card.
 Nothing here times anything."""
 import importlib.util
@@ -214,6 +214,34 @@ def test_smoke_fleet_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
                         "int8_matmul_fused": 3 * (5 + 19),
                         "int8_matmul_raw": 0}
     assert set(chips) == {"memristor", "digital"} and x.shape[0] == 256
+
+
+@pytest.mark.chaos
+def test_smoke_ranks_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
+    """Phase 9 with CPU ranks: spawned processes, one gloo group, the
+    lockstep fleet on both systems, then a rank killed mid-serve in a
+    lockstep and in a federated fleet (the ranks run the plain
+    versions: no launches). Chaos-marked, as every kill scenario."""
+    import repro_torch.chip as chip_mod
+    smoke, _ = cpu_smoke
+    monkeypatch.setattr(smoke, "RANK_REQUESTS", 4)
+    monkeypatch.setattr(smoke, "RANK_DRAINS", 2)
+    launches = smoke.phase_ranks(torch, chip_mod, "cpu", "cpu")
+    out = capsys.readouterr().out
+    line = _phase_lines(out)["ranks"]
+    for system in ("memristor", "digital"):
+        res = line["systems"][system]
+        assert res["equal_to_chip"] == [True, True]
+        assert len(set(res["steps_per_rank"])) == 1
+        assert res["stats_global"]["requests"] == 8
+        assert len(res["lockstep_drains"]) == 2
+    assert line["lockstep_degrade"]["survivor"] == 0
+    assert line["federated_chaos"]["survivor"] == 1
+    for name in ("lockstep_degrade", "federated_chaos"):
+        assert line[name]["uids_completed_once"] == 16
+        assert line[name]["compile_delta"] == 0
+    assert set(launches.values()) == {0}
+    assert out.count('"metric": "ranks_router_rate"') == 2
 
 
 def test_smoke_refuses_without_a_card_or_the_repository(tmp_path):
