@@ -75,8 +75,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      aggregate rate beside one process's ``FleetRouter`` with the same
      lanes and requests.
 
+ 10. deploy: the declarative entry point (``repro_torch.deploy``) on
+     the deep app: (a) ``deploy()`` of one app on each system equal to
+     ``shard_chip(compile_chip(...))`` bit for bit with the chip's
+     three launches a batch; (b) a memristor and an 8-bit digital
+     tenant on 2 logical chips serving 32 requests of 16 items each off
+     two ``StreamSource``s, every routed output against the direct
+     stream, the per-app stats rolled up exactly, with (e)
+     ``repro_torch.obs`` on: the phase shares of a served step and a
+     Chrome trace written under ``build/`` and reloaded; (c) ``tune()``
+     on the reference tune selftest's spec (deep and 12-bit ocr at 1e5
+     items/s) and ``deploy(tuned.spec)``: deep on memristor 128×64, ocr
+     on digital 128×64 through the raw int8 kernel's byte planes (new
+     shapes: K = 2500 → 60 → 26), its report equal to the tuner's at
+     1e-9, each tenant's 16,384 items checked against the einsum path
+     (memristor rel ≤ 1e-5 layer by layer, 12 bits to the bit), and a
+     mixed drain; (d) the canary loop on a deployed drifting deep
+     tenant, journaled on a heartbeat board, with no compile. Then the
+     two-tenant router's steps/s beside one ``FleetRouter`` with the
+     same lanes, and each tuned tenant's ms a batch and busy time.
+
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–9 (phase 9: what the ranks report; a
+(phases 2–3) and in phases 5–10 (phase 9: what the ranks report; a
 killed rank reports nothing).
 
 It prints the card's name and power limit first, one JSON line per
@@ -93,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -142,6 +163,13 @@ RANKS = 2               # phase 9: processes sharing the one card
 RANK_CHIPS = 2          # logical chips a rank
 RANK_REQUESTS = 32      # sensor frames a rank's feed
 RANK_DRAINS = 4         # lockstep drains a rank; the first warms up
+DEPLOY_CHIPS = 2        # phase 10: logical chips of a deployment
+DEPLOY_LANES = 4        # lanes a chip for each tenant: 8 a tenant, 16 in all
+DEPLOY_REQUESTS = 32    # requests a tenant
+DEPLOY_ITEMS = 16       # items a request
+TUNE_SLO = 1e5          # the reference tune selftest's SLO for both tenants
+VAR_LANES = 128         # lanes a chip of the drifting tenant: 256 rows a step
+VAR_ITEMS = 160         # items a request of the drifting tenant: 160 steps
 
 
 class SmokeFailure(Exception):
@@ -1273,7 +1301,9 @@ def phase_ranks(torch, chip_mod, device, card):
     router drains each rank's ``StreamSource.for_host`` feed
     RANK_DRAINS times with the same steps on every rank; ``stats_global``
     is identical on every rank and equal to ``assemble_stats`` of the
-    ranks' own rows. Then rank 1 of a lockstep fleet and rank 0 of a
+    ranks' own rows; each rank's lockstep router then degrades to its
+    own chips, resizes to twice them and drains locally, its stream
+    equal to the chip's. Then rank 1 of a lockstep fleet and rank 0 of a
     federated one are killed mid-serve, and the survivor absorbs the
     dead feed with every uid accounted once and no compile. Last, the
     lockstep router's aggregate rate against one process's
@@ -1307,6 +1337,10 @@ def phase_ranks(torch, chip_mod, device, card):
                      row["rel_one_process"] <= FLEET_TOL,
                      f"{system} rank stream_local: {per}, "
                      f"rel {row['rel_one_process']}")
+            _require(row["degraded_resized"]["equal_chip"] and
+                     row["degraded_resized"]["chips"] == 2 * RANK_CHIPS,
+                     f"{system} rank degrade + resize: "
+                     f"{row['degraded_resized']}")
         drains = rows[0]["drains"]
         timed = drains[1:] or drains
         systems[system] = {
@@ -1315,6 +1349,7 @@ def phase_ranks(torch, chip_mod, device, card):
             "equal_to_chip": [r["equal_chip"] for r in rows],
             "rel_one_process": [r["rel_one_process"] for r in rows],
             "steps_per_rank": [r["counts"][2] for r in rows],
+            "degraded_resized": [r["degraded_resized"] for r in rows],
             "stats_global": rows[0]["stats_global"],
             "lockstep_drains": drains,
             # each rank's seconds a drain in the lockstep reduction
@@ -1412,6 +1447,328 @@ def phase_ranks(torch, chip_mod, device, card):
 
 
 # --------------------------------------------------------------------- #
+# phase 10: the declarative deployment and the tuner
+# --------------------------------------------------------------------- #
+class _Frames:
+    """A (seed, step)-pure request pipeline: DEPLOY_ITEMS deep-app items
+    a step."""
+
+    def __init__(self, torch, seed):
+        self.torch, self.seed = torch, seed
+
+    def batch(self, step):
+        gen = self.torch.Generator().manual_seed(1000 * self.seed + step)
+        return self.torch.rand((DEPLOY_ITEMS, DEEP[0]),
+                               generator=gen).numpy()
+
+
+def _roll_up(stats):
+    """The per-app rows' sums beside the fleet row's counters."""
+    keys = ("requests", "items", "rejected", "lanes")
+    apps = {k: sum(getattr(s, k) for s in stats.apps.values())
+            for k in keys}
+    fleet = {k: getattr(stats.fleet, k) for k in keys}
+    return apps, fleet
+
+
+def _served_diff(torch, d, done, dev):
+    """Max |routed output − the tenant's direct stream| over ``done``."""
+    import numpy as np
+    diff = 0.0
+    for app in {st.request.key for st in done}:
+        mine = [st for st in done if st.request.key == app]
+        items = torch.from_numpy(np.concatenate([st.request.items
+                                                 for st in mine])).to(dev)
+        served = torch.from_numpy(np.concatenate([st.result
+                                                  for st in mine]))
+        diff = max(diff, float((served - d.stream(app, items).cpu())
+                               .abs().max()))
+    return diff
+
+
+def phase_deploy(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
+                 card):
+    """(a) single-app ``deploy()`` against ``shard_chip``, (b)+(e) the
+    two-tenant served drain under telemetry, (c) the tuned heterogeneous
+    fabric, (d) the canary loop on a deployed drifting tenant. The
+    path's launches are counted around each path call (``on_path``);
+    the checks against ``shard_chip``, the direct stream and the einsum
+    path run outside it."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.configs.paper_apps import APPS
+    from repro_torch.deploy import AppSpec, DeploymentSpec, deploy
+    from repro_torch.fleet import StreamSource, shard_chip
+    from repro_torch.fleet.ha import HeartbeatBoard
+    from repro_torch.obs.trace import phase_breakdown, trace_ok
+    from repro_torch.tune import tune
+
+    t_phase = time.perf_counter()
+    path = {k: 0 for k in ops.launch_counts()}
+
+    def on_path(fn, *args):
+        before = ops.launch_counts()
+        out = fn(*args)
+        for k, v in _deltas(ops.launch_counts(), before).items():
+            path[k] += v
+        return out, _deltas(ops.launch_counts(), before)
+
+    spec = tcl.MLPSpec(DEEP, activation="threshold", out_activation="linear")
+    params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    x = torch.rand((STREAM_B, DEEP[0]),
+                   generator=torch.Generator().manual_seed(12)).to(dev)
+    kernel = {"memristor": "crossbar_mvm", "digital": "int8_matmul_fused"}
+    lines = {}
+
+    # (a) one app on each system: the chip's stream, the chip's launches
+    single = {}
+    for system in ("memristor", "digital"):
+        d = deploy(AppSpec("deep", spec, params=params, system=system),
+                   n_chips=DEPLOY_CHIPS, device=dev)
+        y, per = on_path(d.stream, "deep", x)
+        want = shard_chip(chip_mod.compile_chip(spec, params=params,
+                                                system=system, device=dev),
+                          DEPLOY_CHIPS).stream(x)
+        _require(per == {k: 3 if k == kernel[system] else 0 for k in per},
+                 f"deploy {system} launches a batch {per}")
+        _require(bool(torch.equal(y, want)),
+                 f"deploy {system} differs from shard_chip: rel "
+                 f"{_rel(y, want):.3g}")
+        single[system] = {"launches_per_batch": per,
+                          "equal_to_shard_chip": True}
+    lines["single_app"] = single
+
+    # (b) + (e): two tenants on DEPLOY_CHIPS chips, served under
+    # telemetry; the trace goes under build/ and is read back
+    two = deploy(DeploymentSpec(apps=(
+        AppSpec("deep_memristor", spec, params=params,
+                lanes_per_chip=DEPLOY_LANES),
+        AppSpec("deep_digital", spec, params=params, system="digital",
+                lanes_per_chip=DEPLOY_LANES)), n_chips=DEPLOY_CHIPS,
+        device=dev))
+    sources = {app: StreamSource(_Frames(torch, i),
+                                 n_requests=DEPLOY_REQUESTS, capacity=8)
+               for i, app in enumerate(two.apps)}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tel = obs.configure()
+    try:
+        done, per = on_path(two.serve, sources)
+        events = tel.tracer.trace_events()
+        trace_path = two.trace(os.path.join(ROOT, "build",
+                                            "phase10_trace.json"))
+    finally:
+        obs.disable()
+    with open(trace_path) as f:
+        doc = json.load(f)
+    brk = phase_breakdown(events)
+    tiled = sum(brk["phases"].values()) / brk["step_us"]
+    steps = two.router.steps
+    _require(len(done) == 2 * DEPLOY_REQUESTS and
+             all(src.exhausted for src in sources.values()),
+             f"two-tenant serve finished {len(done)}")
+    _require(per["crossbar_mvm"] == 3 * steps and
+             per["int8_matmul_fused"] == 3 * steps,
+             f"two-tenant launches {per} in {steps} steps")
+    diff = _served_diff(torch, two, done, dev)
+    _require(diff <= 1e-5, f"two-tenant routed outputs differ from the "
+                           f"direct stream by {diff:.3g}")
+    apps_sum, fleet = _roll_up(two.stats())
+    _require(apps_sum == fleet == {
+        "requests": 2 * DEPLOY_REQUESTS,
+        "items": 2 * DEPLOY_REQUESTS * DEPLOY_ITEMS, "rejected": 0,
+        "lanes": 2 * DEPLOY_LANES * DEPLOY_CHIPS},
+        f"two-tenant roll-up {apps_sum} vs {fleet}")
+    _require(trace_ok(doc, len(done)) and brk["steps"] == steps and
+             0.90 <= tiled <= 1.02,
+             f"trace: {brk['steps']} steps, phases/steps {tiled:.4f}")
+    lines["two_tenants"] = {
+        "requests": len(done), "steps": steps, "launches": per,
+        "served_max_abs_diff": diff, "roll_up": fleet,
+        "step_phase_share": {k: v / brk["step_us"]
+                             for k, v in sorted(brk["phases"].items())},
+        "step_ms_mean": brk["step_us"] / brk["steps"] / 1e3,
+        "phases_over_steps": tiled,
+        "trace": os.path.relpath(trace_path, ROOT),
+        "trace_events": len(doc["traceEvents"])}
+
+    # (c) the tuned heterogeneous fabric
+    tuned = tune(DeploymentSpec(apps=(
+        AppSpec("deep", "deep", items_per_second=TUNE_SLO),
+        AppSpec("ocr", "ocr", items_per_second=TUNE_SLO, weight_bits=12)),
+        device=dev))
+    picked = {a: (p.system, p.geometry)
+              for a, p in tuned.assignment.items()}
+    _require(picked == {"deep": ("memristor", "128x64"),
+                        "ocr": ("digital", "128x64")} and
+             tuned.n_chips == 2, f"tuned assignment {picked}")
+    het = deploy(tuned.spec)
+    rep = het.report()
+    cost_rel = max(abs(rep.area_mm2 - tuned.area_mm2) / tuned.area_mm2,
+                   abs(rep.power_mw - tuned.power_mw) / tuned.power_mw)
+    _require(het.chip_systems == tuned.chip_systems and
+             cost_rel <= REPORT_RTOL, f"tuned report rel {cost_rel:.3g}")
+    xs, outs, per_batch = {}, {}, {}
+    for i, name in enumerate(het.apps):
+        d_in = APPS[name].nets(picked[name][0])[0][1][0]
+        xs[name] = torch.rand((STREAM_B, d_in),
+                              generator=torch.Generator().manual_seed(20 + i)
+                              ).to(dev)
+        outs[name], per_batch[name] = on_path(het.stream, name, xs[name])
+    gen = torch.Generator().manual_seed(30)
+    for name in het.apps:
+        d_in = xs[name].shape[1]
+        for _ in range(8):
+            het.submit(name, torch.rand((DEPLOY_ITEMS, d_in),
+                                        generator=gen).numpy())
+    mixed, _ = on_path(het.run_until_drained)
+    deep_chip, ocr_chip = het.chip("deep"), het.chip("ocr")
+    _require(per_batch["deep"] == {"crossbar_mvm": 3, "int8_matmul_fused": 0,
+                                   "int8_matmul_raw": 0} and
+             per_batch["ocr"] == {"crossbar_mvm": 0, "int8_matmul_fused": 0,
+                                  "int8_matmul_raw": 8},
+             f"tuned launches a batch {per_batch}")
+    flips, clear = _layerwise_check(torch, tcompile, tq, deep_chip,
+                                    xs["deep"], "tuned deep")
+    plain = deep_chip.stream(xs["deep"], use_kernel=False)
+    e_deep = _rel(outs["deep"][clear], plain[clear])
+    _require(e_deep <= TOL_F32, f"tuned deep vs einsum rel {e_deep:.3g}")
+    _require(bool(torch.equal(outs["ocr"], ocr_chip.stream(
+        xs["ocr"], use_kernel=False))), "tuned 12-bit ocr differs from the "
+                                        "einsum path")
+    plane_checks = 0
+    for i, xp, wp in _layer_planes(torch, tcl, ocr_chip, xs["ocr"]):
+        for a in range(xp.shape[0]):
+            for b in range(wp.shape[0]):
+                for rows in (STREAM_B, 4):
+                    _require(torch.equal(
+                        ops.int8_matmul(xp[a][:rows], wp[b]),
+                        ref.int8_matmul_ref(xp[a][:rows], wp[b])),
+                        f"raw int8 ocr layer {i} planes ({a}, {b}), "
+                        f"{rows} rows, not exact")
+                    plane_checks += 1
+    diff = _served_diff(torch, het, mixed, dev)
+    apps_sum, fleet = _roll_up(het.stats())
+    _require(len(mixed) == 16 and diff <= 1e-5 and apps_sum == fleet,
+             f"tuned mixed drain: {len(mixed)}, diff {diff:.3g}, "
+             f"{apps_sum} vs {fleet}")
+    lines["tuned"] = {
+        "chip_systems": list(tuned.chip_systems), "assignment": picked,
+        "area_mm2": tuned.area_mm2, "power_mw": tuned.power_mw,
+        "report_rel": cost_rel, "launches_per_batch": per_batch,
+        "deep_vs_einsum_rel": e_deep, "deep_threshold_flips_in_band": flips,
+        "deep_rows_compared": int(clear.sum()),
+        "ocr_equal_to_einsum_path": True,
+        "ocr_planes": [list(lay.tiles.planes.shape) for lay in ocr_chip.plan],
+        "raw_plane_checks_exact": plane_checks,
+        "mixed_requests": len(mixed), "mixed_served_max_abs_diff": diff,
+        "mixed_roll_up": fleet}
+
+    # (d) the canary loop on a deployed drifting deep tenant: drift only,
+    # as phase 5's loop — write noise re-rolls at every reprogram, so a
+    # chip with it cannot return to its attach-time answers
+    canary = torch.rand((CANARY_ROWS, DEEP[0]),
+                        generator=torch.Generator().manual_seed(6)).numpy()
+    n_req = VAR_LANES * DEPLOY_CHIPS
+    frames = torch.rand((n_req * VAR_ITEMS, DEEP[0]),
+                        generator=torch.Generator().manual_seed(13)).numpy()
+    with tempfile.TemporaryDirectory() as tmp, deploy(AppSpec(
+            "deep", spec, params=params,
+            noise=var.NoiseModel(drift_rate=DRIFT_RATE, seed=0),
+            lanes_per_chip=VAR_LANES), n_chips=DEPLOY_CHIPS,
+            device=dev) as drifting:
+        board = HeartbeatBoard(tmp)
+        monitor = drifting.attach_monitor("deep", canary,
+                                          every_steps=CANARY_STEPS)
+        recal = drifting.attach_recalibration(
+            "deep", policy=var.RecalPolicy(slo=CANARY_SLO), board=board)
+        for i in range(n_req):
+            drifting.submit("deep", frames[i * VAR_ITEMS:
+                                           (i + 1) * VAR_ITEMS])
+        c0 = chip_mod.compile_count()
+        var_done, _ = on_path(drifting.run_until_drained)
+        delta = chip_mod.compile_count() - c0
+        events = recal.events
+        journaled = len(board.events("recalibration"))
+        accs = monitor.series()["accuracy"]
+        var_steps = drifting.router.steps
+    _require(len(var_done) == n_req and events and delta == 0 and
+             min(accs) < CANARY_SLO and journaled == len(events) and
+             all(e.accuracy_after >= CANARY_SLO and e.compile_delta == 0
+                 for e in events),
+             f"deployed canary loop: {[dataclasses.asdict(e) for e in events]}"
+             f", compile delta {delta}")
+    lines["canary_loop"] = {
+        "noise": {"drift_rate": DRIFT_RATE, "seed": 0},
+        "lanes": n_req, "steps": var_steps, "requests": len(var_done),
+        "recals": [{"step": e.step, "items_streamed": e.items_streamed,
+                    "before": e.accuracy_before, "after": e.accuracy_after}
+                   for e in events],
+        "journaled": journaled, "min_accuracy": min(accs),
+        "compile_delta": delta}
+    torch.cuda.synchronize()
+    _line({"phase": "deploy", **lines, "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return two, het, xs, path
+
+
+def phase_deploy_times(torch, chip_mod, two, het, xs, card):
+    """The two-tenant router's steps/s beside one ``FleetRouter`` over
+    the memristor tenant's fleet with the same 16 lanes serving the same
+    64 requests (medians of three drains after a warm-up); then each
+    tuned tenant's ms a batch (10 timings of 10 batches), device busy
+    time, idle share and kernels a batch."""
+    from repro_torch.deploy import MultiAppRouter
+    from repro_torch.fleet import FleetRouter
+    members = two.router.members
+    frames = {app: _Frames(torch, i) for i, app in enumerate(members)}
+    requests = [(app, frames[app].batch(step)) for step in
+                range(DEPLOY_REQUESTS) for app in members]
+    lanes = DEPLOY_LANES * DEPLOY_CHIPS
+    engines = {
+        "two_tenant_router": lambda: MultiAppRouter(
+            members, lanes={app: lanes for app in members}),
+        "one_app_fleet_router": lambda: FleetRouter(
+            members["deep_memristor"],
+            lanes_per_chip=DEPLOY_LANES * len(members))}
+    rates = {k: [] for k in engines}
+    steps = {}
+    for _ in range(1 + SERVE_DRAINS):       # the first round warms up
+        for k, make in engines.items():
+            eng = make()
+            for uid, (app, items) in enumerate(requests):
+                eng.submit(chip_mod.ChipRequest(
+                    uid=uid, items=items,
+                    key=app if k == "two_tenant_router" else None))
+            t0 = time.perf_counter()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            rates[k].append(eng.steps / (time.perf_counter() - t0))
+            steps[k] = eng.steps
+    for k, r in rates.items():
+        _line({"metric": "deploy_router_steps_per_s", "engine": k,
+               "lanes": 2 * lanes, "requests": len(requests),
+               "items": len(requests) * DEPLOY_ITEMS, "steps": steps[k],
+               "drains": r[1:], "warm_up_drain": r[0],
+               "steps_per_s": _quartiles(r[1:])[0], "card": card})
+    for name, x in xs.items():
+        member = het.router.members[name]
+        ms = [_time_ms(torch, lambda: het.stream(name, x), iters=10)
+              for _ in range(2 * STREAM_ROUNDS)]
+        med, q1, q3 = _quartiles(ms)
+        chip = het.chip(name)
+        _line({"metric": "deploy_tuned_tenant_stream", "app": name,
+               "system": chip.system,
+               "geometry": f"{chip.geom.rows}x{chip.geom.cols}",
+               "dims": list(chip.dims), "batch": STREAM_B,
+               "ms_per_batch_median": med, "ms_per_batch_q1": q1,
+               "ms_per_batch_q3": q3, "runs": len(ms),
+               "items_per_s": STREAM_B / med * 1e3,
+               **_device_busy(torch, member, x, True, med), "card": card})
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -1470,10 +1827,13 @@ def main() -> int:
             torch, ops, ref, tcl, wide, x_wide, launches, card))
         phase_fleet_times(torch, chip_mod, fleet_chips, x_fleet, card)
         rank_launches = phase_ranks(torch, chip_mod, None, card)
+        two, het, x_tuned, deploy_launches = phase_deploy(
+            torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev, card)
+        phase_deploy_times(torch, chip_mod, two, het, x_tuned, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
-                          fleet_launches, rank_launches):
+                          fleet_launches, rank_launches, deploy_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

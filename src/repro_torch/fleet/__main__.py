@@ -24,23 +24,28 @@ rows bit for bit (three kernel launches a call on the card) and the
 one-process stream of the whole batch within rel 1e-6; the lockstep
 :class:`DistributedFleetRouter` drains its ``StreamSource.for_host``
 feed, its outputs match the direct stream, and ``stats_global`` and
-the fleet report account for every rank. The parent checks that every
+the fleet report account for every rank; last, the router degrades to
+the rank's own chips (``repro_torch.fleet.ha.degrade_to_local``),
+resizes to twice them with no compile and drains a local feed. The
+parent checks that every
 rank ran the same steps and got the same ``stats_global``, equal to
 ``assemble_stats`` of the ranks' own rows; exit 0 iff all hold.
 
 ``PYTHONPATH=src python -m repro_torch.fleet --chaos-selftest`` — fault
-tolerance: spawns a FEDERATED fleet (independent ranks over a shared
-heartbeat board, :mod:`repro_torch.fleet.ha`), SIGKILLs ``--kill-rank``
-(default 0) the moment its engine step reaches ``--kill-step``
-(default 3), and checks that the survivor detects the death, absorbs
-the dead rank's feed by replay, finishes degraded, resizes 2 → 4
+tolerance: spawns a FEDERATED fleet (independent ranks, each a
+``repro_torch.deploy.deploy`` of the deep app, over a shared heartbeat
+board, :mod:`repro_torch.fleet.ha`), SIGKILLs ``--kill-rank`` (default
+0) the moment its engine step reaches ``--kill-step`` (default 3), and
+checks that the survivor detects the death, absorbs the dead rank's
+feed by replay, finishes degraded, resizes its deployment 2 → 4
 logical chips with no compile, and that the final board journals
 account for every admitted item of every rank exactly once. With
-``--lockstep`` the ranks form one gloo group under
-:class:`DistributedFleetRouter` instead (kill a rank other than the
-survivor you want to watch: ``--kill-rank 1``); the survivor's guarded
-collective raises :class:`repro_torch.fleet.ha.MembershipChange` and it
-degrades to its own chips in place with no compile.
+``--lockstep`` the ranks deploy onto one mesh spanning a gloo group
+under :class:`repro_torch.deploy.DistributedMultiAppRouter` instead
+(kill a rank other than the survivor you want to watch: ``--kill-rank
+1``); the survivor's guarded collective raises
+:class:`repro_torch.fleet.ha.MembershipChange` and it degrades to its
+own chips in place with no compile.
 
 Every entry point runs on the card unless ``--device cpu`` is given.
 """
@@ -250,16 +255,22 @@ def _counted(path: dict, fn, *args):
     return out
 
 
-def _deep_chip(system, dev):
-    """The deep app at its published width, weights from seed 0 — every
-    rank compiles the same chip, so programming moves no bytes."""
+def _deep_app(dev):
+    """The deep app at its published width and its weights from seed 0
+    — every rank programs the same chip, so programming moves no
+    bytes. Returns (spec, params)."""
     import torch
 
-    from repro_torch.chip import compile_chip
     from repro_torch.core.crossbar_layer import MLPSpec, mlp_init
     spec = MLPSpec(DEEP, activation="threshold", out_activation="linear")
-    params = mlp_init(spec, generator=torch.Generator().manual_seed(0),
-                      device=dev)
+    return spec, mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+
+
+def _deep_chip(system, dev):
+    """The deep app's chip on ``system`` (:func:`_deep_app`)."""
+    from repro_torch.chip import compile_chip
+    spec, params = _deep_app(dev)
     return compile_chip(spec, params=params, system=system, device=dev)
 
 
@@ -281,7 +292,9 @@ def distributed_worker(*, device=None, rows=None, requests=None,
     environment). For each system: ``stream_local`` of its block of
     ``rows`` global rows against the chip, then ``drains`` lockstep
     drains of its own ``requests``-frame feed (the first checked, all
-    timed); then the cost of ``any_across_hosts``. Prints one JSON
+    timed), then the last drain's router degraded to this rank's chips,
+    resized to twice them and drained locally; then the cost of
+    ``any_across_hosts``. Prints one JSON
     line; exit 0 iff EVERY rank's checks passed (the verdict is
     allgathered, so all ranks agree)."""
     import time
@@ -293,7 +306,7 @@ def distributed_worker(*, device=None, rows=None, requests=None,
     from repro_torch.chip import compile_count
     from repro_torch.data import SensorPipeline
     from repro_torch.fleet import StreamSource, shard_chip
-    from repro_torch.fleet.ha import HAConfig
+    from repro_torch.fleet.ha import HAConfig, degrade_to_local
     from repro_torch.fleet.router import any_across_hosts
     from repro_torch.launch.mesh import (allgather, init_fleet_group,
                                          make_distributed_fleet_mesh,
@@ -406,6 +419,27 @@ def distributed_worker(*, device=None, rows=None, requests=None,
                        wait=[float(v) for v in wait],
                        stats_local=dataclasses.asdict(router.stats()),
                        stats_global=dataclasses.asdict(glob))
+        # what a survivor of a membership change does to this router:
+        # fall back onto this rank's chips, then a live resize to twice
+        # them — the same plan, and a local drain through the rebuilt
+        # lane pool
+        degrade_to_local(router)
+        router.resize(2 * chips)
+        n0 = len(router.finished)
+        src = StreamSource.for_host(pipe, n_requests=requests, capacity=3)
+        done = _counted(path, router.serve, src)[n0:]
+        y = _counted(path, fleet.stream, x_local)
+        row["degraded_resized"] = {
+            "chips": fleet.n_chips, "lanes": router.slots,
+            "requests": len(done), "equal_chip": bool(
+                torch.equal(y, chip.stream(x_local)))}
+        check(f"{system}: degraded to this rank's chips, resized to "
+              f"{2 * chips}, drained locally; stream == the chip's",
+              not fleet.is_distributed and fleet.n_chips == 2 * chips and
+              router.slots == LANES_PER_CHIP * 2 * chips and
+              len(done) == requests and src.exhausted and
+              _direct_ok(chip, done) and
+              row["degraded_resized"]["equal_chip"])
         out[system] = row
     check("streams and drains compile nothing", compile_count() == c0)
     check("registry snapshots gather across ranks",
@@ -455,21 +489,23 @@ def distributed_worker(*, device=None, rows=None, requests=None,
 def chaos_worker(*, device=None, lockstep: bool = False, requests=None,
                  verbose: bool = True) -> int:
     """One rank of the chaos fleet (spawned by
-    :func:`run_chaos_selftest`): serves its share of one logical
-    sensor stream of the deep app (memristor) through
+    :func:`run_chaos_selftest`): deploys the deep app (memristor) with
+    :func:`repro_torch.deploy.deploy` and serves its share of one
+    logical sensor stream through
     :class:`repro_torch.fleet.ha.HAFleetServer` — federated over a
-    one-process mesh, or (``lockstep``) as one rank of a gloo group
-    under the lockstep router — survives the supervisor SIGKILLing a
-    peer mid-serve (detect → absorb the dead rank's feed → finish
-    degraded), reports the board ``stats_global`` roll-up from THIS
-    rank, then resizes to twice its chips with no compile."""
+    one-process mesh, or (``lockstep``) on a mesh spanning the gloo
+    group under the lockstep multi-app router — survives the supervisor
+    SIGKILLing a peer mid-serve (detect → absorb the dead rank's feed →
+    finish degraded), reports the board ``stats_global`` roll-up from
+    THIS rank, then resizes the deployment to twice its chips with no
+    compile."""
     import numpy as np
     import torch
 
     from repro_torch.chip import compile_count
     from repro_torch.data import SensorPipeline
-    from repro_torch.fleet import (DistributedFleetRouter, FleetRouter,
-                                   StreamSource, shard_chip)
+    from repro_torch.deploy import AppSpec, deploy
+    from repro_torch.fleet import StreamSource
     from repro_torch.fleet.ha import HAConfig, HAFleetServer, HeartbeatBoard
     from repro_torch.launch.mesh import (init_fleet_group,
                                          make_distributed_fleet_mesh,
@@ -493,22 +529,21 @@ def chaos_worker(*, device=None, lockstep: bool = False, requests=None,
     if lockstep:
         init_fleet_group(config.start_grace_s)
     check = _checker(f"[rank {rank}] ", verbose)
-    chip = _deep_chip("memristor", dev)
+    spec, params = _deep_app(dev)
+    topology = ({"mesh": make_distributed_fleet_mesh(chips, device=dev)}
+                if lockstep else {"n_chips": chips})
+    d = deploy(AppSpec("app", spec, params=params, lanes_per_chip=2,
+                       queue_limit=4), device=dev, **topology)
+    chip, router = d.chip("app"), d.router
+    fleet = router.members["app"]
     c0 = compile_count()
-    if lockstep:
-        fleet = shard_chip(chip, mesh=make_distributed_fleet_mesh(
-            chips, device=dev))
-        router = DistributedFleetRouter(fleet, lanes_per_chip=2,
-                                        queue_limit=4)
-    else:
-        fleet = shard_chip(chip, chips)
-        router = FleetRouter(fleet, lanes_per_chip=2, queue_limit=4)
     pipe = SensorPipeline(window=28, stride=18, frames_per_step=1)
     src = StreamSource.for_host(pipe, host=rank, hosts=nprocs,
                                 n_requests=n_req, capacity=3)
     server = HAFleetServer(
         router, src, board=HeartbeatBoard(os.environ[HA_DIR_ENV]),
-        rank=rank, ranks=range(nprocs), pipeline=pipe, config=config)
+        rank=rank, ranks=range(nprocs), pipeline=pipe, key="app",
+        config=config)
     path = {}                   # the path's kernel launches
     done = _counted(path, server.serve)
 
@@ -538,22 +573,22 @@ def chaos_worker(*, device=None, lockstep: bool = False, requests=None,
               server.degraded_items_per_second > 0)
         if lockstep:
             check("the lockstep router degraded to its own chips",
-                  out["degraded"] and not fleet.is_distributed and
+                  out["degraded"] and not d.is_distributed and
                   fleet.n_chips == chips)
 
-    # elastic resize to twice the chips: the same programmed plan, no
-    # compile, the chip's own rows
-    router.resize(2 * chips)
+    # elastic resize of the deployment to twice the chips: the same
+    # programmed plan, no compile, the chip's own rows
+    d.resize(2 * chips)
     x = torch.rand((8, DEEP[0]),
                    generator=torch.Generator().manual_seed(2)).to(dev)
-    y, ref = _counted(path, fleet.stream, x), chip.stream(x)
+    y, ref = _counted(path, d.stream, "app", x), chip.stream(x)
     rel = float((y - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
-    out.update(resized_chips=fleet.n_chips,
+    out.update(resized_chips=d.n_chips,
                compile_delta=compile_count() - c0, resize_rel=rel,
                launches=path)
     check("serve, degrade and resize compile nothing; resized rel 0.0",
-          fleet.n_chips == 2 * chips and out["compile_delta"] == 0 and
-          rel == 0.0)
+          d.n_chips == fleet.n_chips == 2 * chips and
+          out["compile_delta"] == 0 and rel == 0.0)
     out["ok"] = check.ok
     if verbose:
         print(f"  [rank {rank}] chaos worker: "

@@ -402,23 +402,23 @@ def local_fleet_mesh(mesh: FleetMesh,
 
 def degrade_to_local(router, mesh: Optional[FleetMesh] = None) -> None:
     """Fall a lockstep router out of its dead collectives onto this
-    rank's own chips, in place: serve the programmed plan on a
-    one-process mesh (ZERO compile passes), rebuild the lane pool with
-    in-flight lanes evicted and front-requeued (no drop/dup/re-stream),
-    and drop the collective control plane — the router keeps its
-    counters and finished states, so accounting survives the failure.
-    After this, the router behaves exactly like its single-process
-    parent class.
+    rank's own chips, in place: serve every member's programmed plan on
+    a one-process mesh (ZERO compile passes), rebuild the lane pool
+    with in-flight lanes evicted and front-requeued (no
+    drop/dup/re-stream), and drop the collective control plane — the
+    router keeps its counters and finished states, so accounting
+    survives the failure. After this, the router behaves exactly like
+    its single-process parent class. A multi-app router
+    (:class:`repro_torch.deploy.DistributedMultiAppRouter`) moves each
+    tenant onto the mesh and keeps its per-app lane budgets.
 
     Default mesh: this rank's device with all its logical chips
     (:func:`local_fleet_mesh`). The reference falls back to one device
     once a collective has failed (its jax CPU client's fault, see the
     module docstring); the rank's CUDA work here never goes through
-    the failed gloo plane, so it keeps every chip. The multi-app
-    router's degrade (per-member resize) comes with ``deploy``."""
-    if mesh is None:
-        mesh = local_fleet_mesh(router.fleet.mesh)
-    router.resize(mesh=mesh)
+    the failed gloo plane, so it keeps every chip."""
+    router.resize(mesh=local_fleet_mesh(router.mesh) if mesh is None
+                  else mesh)
     router._local_stream = False
     router._spmd_lockstep = False
     router.step_when_idle = False

@@ -330,6 +330,11 @@ class FleetRouter(TimedStepMixin, ItemStreamScheduler):
                              local=self._local_stream)
 
     # ---------------- elastic resize ------------------------------- #
+    @property
+    def mesh(self):
+        """The ``"chip"`` mesh the fleet serves on."""
+        return self.fleet.mesh
+
     def resize(self, n_chips: Optional[int] = None, *, mesh=None) -> None:
         """Live fleet resize (grow OR shrink) under traffic: resize the
         payload (``ShardedChip.resize`` — zero compile passes; ``mesh``

@@ -23,6 +23,11 @@ epoch, in microseconds (the format's unit). All recording methods are
 no-ops when ``enabled=False``; the event buffer is bounded
 (``max_events``), dropping newest-first with an exact drop counter —
 a tracer never becomes the memory leak it exists to find.
+
+Two readers of the recorded events are the port's own:
+:func:`phase_breakdown` (the step-phase sums the telemetry selftest and
+``chip_smoke.py`` print) and :func:`trace_ok` (a written trace's schema,
+nesting and async pairing).
 """
 from __future__ import annotations
 
@@ -158,3 +163,40 @@ class Tracer:
             json.dump(self.to_dict(), f)
             f.write("\n")
         return path
+
+
+def phase_breakdown(events) -> dict:
+    """Σ durations (µs) of the traced steps and of each step phase:
+    ``{"steps": n, "step_us": total, "phases": {name: total}}``."""
+    steps = [e for e in events if e.get("cat") == "step"]
+    phases = {}
+    for e in events:
+        if e.get("cat") == "phase":
+            phases[e["name"]] = phases.get(e["name"], 0.0) + e["dur"]
+    return {"steps": len(steps), "step_us": sum(e["dur"] for e in steps),
+            "phases": phases}
+
+
+def trace_ok(doc: dict, n_requests: int) -> bool:
+    """A written Chrome trace is schema-valid: every complete span has
+    pid/tid/ts/dur and a name, every phase span nests inside a step
+    span of its thread, and the async request begin/end events pair up
+    (``n_requests`` of them)."""
+    evs = doc.get("traceEvents", [])
+    complete = [e for e in evs if e.get("ph") == "X"]
+    schema = bool(complete) and all(
+        isinstance(e.get("pid"), int) and isinstance(e.get("tid"), int)
+        and isinstance(e.get("ts"), (int, float))
+        and isinstance(e.get("dur"), (int, float)) and e.get("name")
+        for e in complete)
+    steps = [e for e in complete if e.get("cat") == "step"]
+    nested = all(
+        any(st["pid"] == p["pid"] and st["tid"] == p["tid"] and
+            st["ts"] - 1e-3 <= p["ts"] and
+            p["ts"] + p["dur"] <= st["ts"] + st["dur"] + 1e-3
+            for st in steps)
+        for p in complete if p.get("cat") == "phase")
+    begins = sorted(e["id"] for e in evs if e.get("ph") == "b")
+    ends = sorted(e["id"] for e in evs if e.get("ph") == "e")
+    return schema and nested and begins == ends and \
+        len(begins) == n_requests

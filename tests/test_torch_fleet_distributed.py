@@ -28,6 +28,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import textwrap
 
 import jax
 import numpy as np
@@ -322,6 +323,8 @@ def test_two_rank_gloo_fleet_on_the_cpu():
         for row in rows:
             assert row["equal_chip"] and row["rel_one_process"] == 0.0
             assert set(row["launches_per_call"].values()) == {0}   # CPU
+            assert row["degraded_resized"] == {
+                "chips": 4, "lanes": 8, "requests": 6, "equal_chip": True}
         assert len({r["drains"][0]["steps"] for r in rows}) == 1
         want = trouter.assemble_stats(
             [r["counts"] for r in rows], [r["wall_s"] for r in rows],
@@ -331,6 +334,88 @@ def test_two_rank_gloo_fleet_on_the_cpu():
                    for r in rows)
         assert want.requests == 12 and want.lanes == 8
         assert want.items == 12 * fmain.WINDOWS
+
+
+_MULTI_APP_WORKER = textwrap.dedent("""
+    import dataclasses, json, os
+    import numpy as np, torch
+    from repro_torch.core.crossbar_layer import MLPSpec, mlp_init
+    from repro_torch.deploy import AppSpec, deploy
+    from repro_torch.fleet import StreamSource
+    from repro_torch.launch.mesh import (init_fleet_group,
+                                         make_distributed_fleet_mesh)
+    torch.set_num_threads(1)
+    rank = init_fleet_group(60.0)
+    mesh = make_distributed_fleet_mesh(
+        int(os.environ["REPRO_DIST_CHIPS"]), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    specs = {"a": MLPSpec((64, 32, 10)), "b": MLPSpec((32, 16, 4))}
+    params = {k: mlp_init(s, generator=gen, device="cpu")
+              for k, s in specs.items()}
+    d = deploy([AppSpec("a", specs["a"], params=params["a"],
+                        lanes_per_chip=2),
+                AppSpec("b", specs["b"], params=params["b"],
+                        system="digital", lanes_per_chip=1,
+                        queue_limit=2)], mesh=mesh, device="cpu")
+
+    class Pipe:
+        def __init__(self, d_in):
+            self.d_in = d_in
+
+        def batch(self, step):
+            rng = np.random.default_rng(100 * self.d_in + step)
+            return rng.uniform(0, 1, (1 + step % 3, self.d_in))
+
+    sources = {"a": StreamSource.for_host(Pipe(64), n_requests=5,
+                                          capacity=2),
+               "b": StreamSource.for_host(Pipe(32), n_requests=3 + rank,
+                                          capacity=2)}
+    done = d.serve(sources)
+    direct = all(np.allclose(st.result, d.chip(st.request.key).stream(
+        torch.as_tensor(st.request.items, dtype=torch.float32)).numpy(),
+        atol=1e-5) for st in done)
+    x = np.random.default_rng(rank).uniform(0, 1, (5, 64)).astype(
+        np.float32)
+    local = d.stream("a", x)
+    g = d.stats_global()
+    print(json.dumps({
+        "rank": rank, "router": type(d.router).__name__,
+        "steps": d.router.steps, "done": len(done), "direct": direct,
+        "local_equal": bool(torch.equal(local, d.chip("a").stream(
+            torch.from_numpy(x)))),
+        "global": {k: dataclasses.asdict(v) for k, v in g.apps.items()}
+        | {"fleet": dataclasses.asdict(g.fleet)},
+        "local": {k: dataclasses.asdict(v) for k, v in
+                  d.stats().apps.items()}}))
+""")
+
+
+def test_two_rank_multi_app_deployment_on_the_cpu():
+    """Two spawned ranks deploy two tenants onto one mesh spanning the
+    gloo group: the lockstep multi-app router drains each rank's feeds
+    in the same steps, routed outputs match the direct stream, a rank's
+    ``stream`` is its own rows, and ``stats_global`` is the same on
+    both ranks — each app's row the sum of the ranks' rows, the fleet
+    row the sum of the apps'."""
+    results = tsimdev.launch_local_fleet(
+        [sys.executable, "-c", _MULTI_APP_WORKER], 2, chips_per_process=2,
+        timeout=120.0, poll_s=0.05)
+    assert all(r.returncode == 0 for r in results), \
+        [r.stderr_tail for r in results]
+    ranks = [tsimdev.last_json_line(r.stdout) for r in results]
+    assert {r["router"] for r in ranks} == {"DistributedMultiAppRouter"}
+    assert len({r["steps"] for r in ranks}) == 1
+    assert all(r["direct"] and r["local_equal"] for r in ranks)
+    assert [r["done"] for r in ranks] == [5 + 3, 5 + 4]
+    glob = ranks[0]["global"]
+    assert all(r["global"] == glob for r in ranks)
+    for app in ("a", "b"):
+        for f in ("requests", "items", "rejected", "lanes"):
+            assert glob[app][f] == sum(r["local"][app][f] for r in ranks)
+    for f in ("requests", "items", "rejected", "lanes"):
+        assert glob["fleet"][f] == glob["a"][f] + glob["b"][f]
+    assert glob["a"]["lanes"] == 2 * 4 and glob["b"]["lanes"] == 1 * 4
+    assert glob["fleet"]["requests"] == 17
 
 
 @pytest.mark.distributed

@@ -33,8 +33,10 @@ from repro.fleet.router import FleetRouter as JRouter
 from repro.fleet.source import BoundedQueue as JQueue
 from repro.fleet.source import StreamSource as JSource
 from repro.launch import simdev as jsimdev
+from repro.deploy.router import DistributedMultiAppRouter as JMultiRouter
 from repro.serving.engine import ItemRequest as JRequest
 
+from repro_torch.deploy.router import DistributedMultiAppRouter as TMultiRouter
 from repro_torch.fleet import ha as tha
 from repro_torch.fleet.router import FleetRouter as TRouter
 from repro_torch.fleet.source import BoundedQueue as TQueue
@@ -48,9 +50,9 @@ D_IN = 3
 # the two packages, as the scripted cases see them
 PKGS = {
     "reference": dict(ha=jha, Router=JRouter, Queue=JQueue, Source=JSource,
-                      Request=JRequest),
+                      Request=JRequest, MultiRouter=JMultiRouter),
     "port": dict(ha=tha, Router=TRouter, Queue=TQueue, Source=TSource,
-                 Request=TRequest),
+                 Request=TRequest, MultiRouter=TMultiRouter),
 }
 
 
@@ -468,6 +470,109 @@ def test_board_roll_up_equals_the_reference_formula(tmp_path):
     for field in want.__dataclass_fields__:
         np.testing.assert_allclose(getattr(got, field), getattr(want, field),
                                    rtol=1e-12, atol=0, err_msg=field)
+
+
+# ---------------------------------------------------------------------- #
+# degraded mode of the multi-app router
+# ---------------------------------------------------------------------- #
+class ToyMember(ToyFleet):
+    """A tenant of a lockstep multi-app router: its rows stream locally,
+    and a resize onto a mesh (recorded) ends its cross-rank span."""
+    is_distributed = True
+
+    def __init__(self):
+        super().__init__(n_chips=2)
+        self.meshes = []
+
+    def stream_local(self, x, use_kernel=False):
+        return self.stream(x)
+
+    def resize(self, n_chips=None, *, mesh=None):
+        self.meshes.append(mesh)
+        self.is_distributed = False
+
+
+def _multi_app_degrade(pkg, root):
+    """Two tenants mid-drain on a lockstep multi-app router; degrade it
+    to local, then drain. The degrade resizes every member onto the
+    mesh, keeps each app's lane budget, requeues the in-flight lanes
+    and drops the lockstep plane."""
+    members = {"a": ToyMember(), "b": ToyMember()}
+    router = pkg["MultiRouter"](members, lanes={"a": 2, "b": 1})
+    rng = np.random.default_rng(3)
+    for uid in range(7):
+        router.submit(pkg["Request"](
+            uid=uid, key="a" if uid % 3 else "b",
+            items=rng.uniform(-1, 1, (2 + uid % 4, D_IN)).astype(
+                np.float32)))
+    router.step()
+    router.step()
+    in_flight = sorted(st.request.uid for st in router.active.values())
+    pkg["ha"].degrade_to_local(router, mesh="local")
+    flags = (router._spmd_lockstep, router._local_stream,
+             router.step_when_idle, router.slots, len(router.active),
+             sorted(e.request.uid for e in router.queue
+                    if hasattr(e, "request")))
+    done = router.run_until_drained()
+    return {"in_flight": in_flight, "flags": flags,
+            "meshes": [m.meshes for m in members.values()],
+            "done": [(st.request.key, st.request.uid, st.result.tolist())
+                     for st in done],
+            "items": dict(router.items_by_key), "steps": router.steps}
+
+
+def test_multi_app_degrade_to_local_agrees_with_the_reference(tmp_path):
+    got = _agree(_multi_app_degrade, tmp_path)
+    assert got["meshes"] == [["local"], ["local"]]
+    assert got["flags"][:5] == (False, False, False, 3, 0)
+    assert got["flags"][5] == got["in_flight"] and got["in_flight"]
+    assert sorted(uid for _, uid, _ in got["done"]) == list(range(7))
+
+
+def test_multi_app_degrade_of_a_deployment_then_resize():
+    """A deployment on a hand-built two-rank mesh (no group: every
+    reduction is local) gets the lockstep multi-app router; after
+    ``degrade_to_local`` its members serve this rank's own chips, and
+    ``Deployment.resize`` then works with no compile."""
+    import torch
+
+    from repro_torch.chip import compile_count
+    from repro_torch.core.crossbar_layer import MLPSpec, mlp_init
+    from repro_torch.deploy import AppSpec, deploy
+    from repro_torch.launch.mesh import FleetMesh
+
+    cpu = torch.device("cpu")
+    spec_a, spec_b = MLPSpec((16, 8, 4)), MLPSpec((8, 4))
+    gen = torch.Generator().manual_seed(0)
+    d = deploy([AppSpec("a", spec_a, params=mlp_init(spec_a, generator=gen,
+                                                     device="cpu"),
+                        lanes_per_chip=2),
+                AppSpec("b", spec_b, params=mlp_init(spec_b, generator=gen,
+                                                     device="cpu"),
+                        system="digital", lanes_per_chip=1)],
+               mesh=FleetMesh((cpu, cpu), (2, 2), process_index=1),
+               device="cpu")
+    assert type(d.router) is TMultiRouter and d.is_distributed
+    assert d.router.slots == 2 * 2 + 1 * 2
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        d.submit("a", rng.uniform(0, 1, (3, 16)).astype(np.float32))
+        d.submit("b", rng.uniform(0, 1, (2, 8)).astype(np.float32))
+    d.step()
+    with pytest.raises(ValueError, match="membership"):
+        d.resize(4)
+    c0 = compile_count()
+    tha.degrade_to_local(d.router)
+    assert not d.is_distributed and d.router.slots == 6
+    assert d.router.members["a"].n_chips == 2
+    d.resize(4)
+    assert compile_count() == c0 and d.router.slots == 12
+    done = d.run_until_drained()
+    assert len(done) == 12 and d.stats().fleet.items == 6 * 3 + 6 * 2
+    for st in done:
+        want = d.chip(st.request.key).stream(
+            torch.from_numpy(st.request.items)).numpy()
+        np.testing.assert_allclose(st.result, want, atol=1e-5)
 
 
 # ---------------------------------------------------------------------- #

@@ -9,7 +9,9 @@ bytes) through the kernels, layer by layer against the einsum path; a
 digital chip at 12 and 16 bits through the raw int8 kernel's byte
 planes, equal to the einsum path to the bit; and the deep app as a
 fleet of 1–4 logical chips against the chip (rel ≤ 1e-6), a fleet of
-two ranks sharing the card (and one of them killed mid-serve).
+two ranks sharing the card (and one of them killed mid-serve); the raw
+int8 kernel at the tuned 12-bit ocr tenant's plane shapes, a deployed
+two-tenant drain and the tuned heterogeneous deployment.
 
 This file imports no JAX (the machine with the card has none), so it
 runs there on its own:
@@ -409,3 +411,94 @@ def test_gpu_chaos_on_the_card(cuda, lockstep, kill_rank):
     (survivor,) = summary["workers"].values()
     assert survivor["launches"]["crossbar_mvm"] > 0
     assert survivor["compile_delta"] == 0
+
+
+# -------------------- deploy and tune on the card --------------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [16384, 4])
+@pytest.mark.parametrize("K,N", [(2500, 60), (60, 26)])
+def test_gpu_raw_int8_kernel_at_the_ocr_plane_shapes(cuda, B, K, N):
+    """The raw int8 kernel at the tuned 12-bit ocr tenant's plane
+    shapes (2500 → 60 → 26: N not a multiple of a tile), exact."""
+    x, w, _, _ = _i8_operands(7, B, K, N)
+    xt, wt = _t(x, w, device=cuda)
+    assert torch.equal(ops.int8_matmul(xt, wt),
+                       tref.int8_matmul_ref(xt, wt))
+    rng = np.random.default_rng(8)
+    xq = rng.integers(0, 4096, (B, K))
+    wq = rng.integers(-2047, 2048, (K, N))
+    got = ops.int8_matmul_planes(
+        tcl.unsigned_byte_planes(torch.from_numpy(xq), 2).to(cuda),
+        tcl.signed_byte_planes(torch.from_numpy(wq), 2).to(cuda))
+    assert torch.equal(got.cpu(), torch.from_numpy(xq @ wq))
+
+
+@pytest.mark.gpu
+def test_gpu_two_tenant_deployment_drains_through_the_kernels(cuda):
+    """A memristor and a digital deep-app tenant on 2 logical chips: each
+    engine step launches the crossbar kernel 3 times and the fused int8
+    kernel 3 times, routed outputs match the direct stream, and the
+    per-app rows roll up exactly."""
+    from repro_torch.deploy import AppSpec, deploy
+    tspec = tcl.MLPSpec(DEEP)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+    d = deploy([AppSpec("m", tspec, params=params, lanes_per_chip=4),
+                AppSpec("d", tspec, params=params, system="digital",
+                        lanes_per_chip=4)], n_chips=2)
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        for app in ("m", "d"):
+            d.submit(app, rng.uniform(0, 1, (16, 784)).astype(np.float32))
+    ops.reset_launch_counts()
+    done = d.run_until_drained()
+    steps = d.router.steps
+    assert ops.launch_counts() == {"crossbar_mvm": 3 * steps,
+                                   "int8_matmul_fused": 3 * steps,
+                                   "int8_matmul_raw": 0}
+    for st in done:
+        want = d.stream(st.request.key,
+                        torch.from_numpy(st.request.items).to(cuda))
+        assert np.abs(st.result - want.cpu().numpy()).max() <= 1e-5
+    stats = d.stats()
+    for f in ("requests", "items", "rejected", "lanes"):
+        assert getattr(stats.fleet, f) == sum(getattr(s, f) for s in
+                                              stats.apps.values())
+    assert stats.fleet.requests == 16 and stats.fleet.items == 256
+
+
+@pytest.mark.gpu
+def test_gpu_tuned_heterogeneous_deployment(cuda):
+    """The tuner's fabric for deep and 12-bit ocr deployed on the card:
+    each tenant streams as its own single-system chip to the bit,
+    ocr through eight raw int8 launches a batch."""
+    from repro_torch.configs.paper_apps import APPS
+    from repro_torch.core.neural_core import CoreGeometry
+    from repro_torch.deploy import AppSpec, DeploymentSpec, deploy
+    from repro_torch.tune import tune
+    tuned = tune(DeploymentSpec(apps=(
+        AppSpec("deep", "deep", items_per_second=1e5),
+        AppSpec("ocr", "ocr", items_per_second=1e5, weight_bits=12))))
+    d = deploy(tuned.spec)
+    assert d.chip_systems == ("digital", "memristor")
+    for i, app in enumerate(tuned.spec.apps):
+        pt = tuned.assignment[app.name]
+        dims = APPS[app.name].nets(pt.system)[0][1]
+        spec = tcl.MLPSpec(dims)
+        params = tcl.mlp_init(
+            spec, generator=torch.Generator().manual_seed(app.seed),
+            device=cuda)
+        chip = compile_chip(spec, params=params, system=pt.system,
+                            geom=CoreGeometry(*pt.geom),
+                            weight_bits=app.weight_bits, device=cuda)
+        x = torch.rand((4097, dims[0]),
+                       generator=torch.Generator().manual_seed(i)).to(cuda)
+        ops.reset_launch_counts()
+        got = d.stream(app.name, x)
+        counts = ops.launch_counts()
+        assert torch.equal(got, chip.stream(x))
+        if pt.system == "digital":
+            assert counts["int8_matmul_raw"] == 8
+            assert torch.equal(got, chip.stream(x, use_kernel=False))
+        else:
+            assert counts["crossbar_mvm"] == 3

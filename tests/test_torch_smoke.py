@@ -1,5 +1,5 @@
 """The card scripts' bookkeeping, on the CPU: what ``chip_smoke.py``
-reports under each key of a kernel row, its phases 5 to 9 run on the
+reports under each key of a kernel row, its phases 5 to 10 run on the
 kernels' plain versions with the launch counters bumped as launches
 would (phase 9, which kills ranks, under the opt-in ``chaos`` marker), how it refuses to run without a card, and how
 ``scripts/kernel_ab.py`` refuses to run without trees or a card.
@@ -214,6 +214,66 @@ def test_smoke_fleet_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
                         "int8_matmul_fused": 3 * (5 + 19),
                         "int8_matmul_raw": 0}
     assert set(chips) == {"memristor", "digital"} and x.shape[0] == 256
+
+
+def test_smoke_deploy_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch,
+                                      tmp_path):
+    """Phase 10 on the CPU: single-app deploys with the chip's three
+    launches a batch, the two-tenant served drain under telemetry (its
+    trace written under ``build/`` and reloaded), the tuned
+    heterogeneous fabric (ocr through eight raw launches a batch: two
+    layers of 2 × 2 byte planes), the deployed canary loop, and the
+    times' bookkeeping. 8 lanes of the drifting tenant age it as
+    512 items a step do on the card (the fixture scales the rate)."""
+    import repro_torch.chip as chip_mod
+    import repro_torch.variability as var
+    from repro_torch.chip import compile as tcompile
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.core import quantization as tq
+    from repro_torch.kernels import ref
+    smoke, ops = cpu_smoke
+    monkeypatch.setattr(smoke, "ROOT", str(tmp_path))
+    monkeypatch.setattr(smoke, "DEPLOY_REQUESTS", 6)
+    monkeypatch.setattr(smoke, "VAR_LANES", 4)
+    monkeypatch.setattr(smoke, "SERVE_DRAINS", 1)
+    monkeypatch.setattr(smoke, "STREAM_ROUNDS", 1)
+    monkeypatch.setattr(smoke, "_time_ms", lambda torch, fn, iters: 2.0)
+    monkeypatch.setattr(smoke, "_device_busy",
+                        lambda torch, chip, x, uk, ms: {})
+    two, het, xs, launches = smoke.phase_deploy(
+        torch, ops, ref, tcompile, tq, tcl, chip_mod, var,
+        torch.device("cpu"), "cpu")
+    smoke.phase_deploy_times(torch, chip_mod, two, het, xs, "cpu")
+    out = capsys.readouterr().out
+    line = _phase_lines(out)["deploy"]
+    for system, key in (("memristor", "crossbar_mvm"),
+                        ("digital", "int8_matmul_fused")):
+        assert line["single_app"][system]["launches_per_batch"][key] == 3
+    steps = line["two_tenants"]["steps"]
+    assert line["two_tenants"]["roll_up"] == {
+        "requests": 12, "items": 12 * 16, "rejected": 0, "lanes": 16}
+    assert set(line["two_tenants"]["step_phase_share"]) == {
+        "admit", "dispatch", "device_step", "gather", "finish"}
+    assert (tmp_path / "build" / "phase10_trace.json").exists()
+    tuned = line["tuned"]
+    assert tuned["assignment"] == {"deep": ["memristor", "128x64"],
+                                   "ocr": ["digital", "128x64"]}
+    assert tuned["chip_systems"] == ["digital", "memristor"]
+    assert tuned["launches_per_batch"]["ocr"]["int8_matmul_raw"] == 8
+    assert tuned["ocr_planes"] == [[2, 2500, 60], [2, 60, 26]]
+    assert tuned["raw_plane_checks_exact"] == 2 * 4 * 2
+    loop = line["canary_loop"]
+    assert loop["recals"] and loop["compile_delta"] == 0
+    assert all(r["after"] >= 0.99 for r in loop["recals"])
+    assert loop["journaled"] == len(loop["recals"])
+    # the path's launches: (a) 3 + 3; (b) 3 K1 and 3 K2 a step; (c) the
+    # two tenants' batches and the mixed drain; (d) 3 K1 a step
+    assert launches["int8_matmul_fused"] == 3 + 3 * steps
+    assert launches["int8_matmul_raw"] % 8 == 0 and \
+        launches["int8_matmul_raw"] > 8
+    assert launches["crossbar_mvm"] > 3 + 3 * steps + 3 + 3 * loop["steps"]
+    assert out.count('"metric": "deploy_router_steps_per_s"') == 2
+    assert out.count('"metric": "deploy_tuned_tenant_stream"') == 2
 
 
 @pytest.mark.chaos
