@@ -94,9 +94,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      tenant, journaled on a heartbeat board, with no compile. Then the
      two-tenant router's steps/s beside one ``FleetRouter`` with the
      same lanes, and each tuned tenant's ms a batch and busy time.
+ 11. lm: language-model tenants (``repro_torch.lm``) on the published
+     qwen1.5-0.5B (24 layers, d 1,024, seeded weights on the card, f32
+     glue), on both systems (128×64 and 256×128 tiles): (a)
+     ``compile_lm`` programs the 168 block linears and routes nothing;
+     (b) a 2 × 32 prefill and a per-slot decode against the dense
+     forward on the card, logits and cache within rel ≤ 1e-5, each
+     layer's residual stream printed, 168 crossbar launches a forward;
+     (c) an ``LMMember`` (4 lanes, a 128-slot ring) serving 6 requests
+     of 16 tokens through ``MultiAppRouter``, token for token equal to
+     the dense ``Engine``, ``lm.tokens`` equal to the 96 items; (e) the
+     tenant's steps/s and tokens/s beside the ``Engine`` (memristor),
+     a decode step's and a prefill's wall, busy time and kernels, and
+     the crossbar kernel at the LM's shapes (4 and 32 rows; 1024→1024,
+     1024→2816, 2816→1024) with its plain version, ``torch.matmul`` on
+     the folded weights and the bound; (d) ``deploy()`` of the deep
+     sensor app and the ``reduced_serving()`` LM on 2 logical chips,
+     tokens equal to the ``Engine``'s, the LM's report row priced.
 
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–10 (phase 9: what the ranks report; a
+(phases 2–3) and in phases 5–11 (phase 9: what the ranks report; a
 killed rank reports nothing).
 
 It prints the card's name and power limit first, one JSON line per
@@ -170,6 +187,14 @@ DEPLOY_ITEMS = 16       # items a request
 TUNE_SLO = 1e5          # the reference tune selftest's SLO for both tenants
 VAR_LANES = 128         # lanes a chip of the drifting tenant: 256 rows a step
 VAR_ITEMS = 160         # items a request of the drifting tenant: 160 steps
+LM_PROMPT = 32          # phase 11: prompt tokens of the parity prefill
+LM_LANES = 4            # decode lanes of the served LM tenant
+LM_CACHE = 128          # its per-lane KV ring
+LM_PROMPTS = (8, 16, 24, 32, 40, 48)   # served prompts' lengths
+LM_NEW = 16             # tokens generated a served request
+LM_TOL = 1e-5           # mapped vs dense on the card: K1 runs 3xTF32
+LM_SHAPES = ("wq", "w1", "w2")         # 1024->1024, 1024->2816, 2816->1024
+LM_SHAPE_ROWS = (4, 32)                # a decode step's lanes, a prefill's
 
 
 class SmokeFailure(Exception):
@@ -453,14 +478,19 @@ def _device_busy(torch, chip, x, use_kernel: bool, wall_ms: float) -> dict:
     a profiler sees in 5 batches, beside the batch's wall time (CUDA
     events, without the profiler): the device's idle share, and the
     kernels that take the time."""
+    return _busy(torch, lambda: chip.stream(x, use_kernel=use_kernel),
+                 wall_ms)
+
+
+def _busy(torch, fn, wall_ms: float, n: int = 5) -> dict:
+    """``_device_busy`` of any call ``fn``, over ``n`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            chip.stream(x, use_kernel=use_kernel)
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -705,6 +735,19 @@ class StandInDeployment:
 
 def _deltas(after, before):
     return {k: after[k] - before[k] for k in after}
+
+
+def _on_path(ops, path):
+    """A caller that counts the launches of one path call into ``path``
+    and returns (result, that call's launches)."""
+    def call(fn, *args, **kw):
+        before = ops.launch_counts()
+        out = fn(*args, **kw)
+        per = _deltas(ops.launch_counts(), before)
+        for k, v in per.items():
+            path[k] += v
+        return out, per
+    return call
 
 
 def phase_variability(torch, ops, tcompile, tq, tcl, chip_mod, var, dev,
@@ -1506,13 +1549,7 @@ def phase_deploy(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
 
     t_phase = time.perf_counter()
     path = {k: 0 for k in ops.launch_counts()}
-
-    def on_path(fn, *args):
-        before = ops.launch_counts()
-        out = fn(*args)
-        for k, v in _deltas(ops.launch_counts(), before).items():
-            path[k] += v
-        return out, _deltas(ops.launch_counts(), before)
+    on_path = _on_path(ops, path)
 
     spec = tcl.MLPSpec(DEEP, activation="threshold", out_activation="linear")
     params = tcl.mlp_init(spec, generator=torch.Generator().manual_seed(0),
@@ -1769,6 +1806,355 @@ def phase_deploy_times(torch, chip_mod, two, het, xs, card):
 
 
 # --------------------------------------------------------------------- #
+# phase 11: LM tenants — the full-width qwen1.5-0.5B on the crossbar path
+# --------------------------------------------------------------------- #
+def _lm_drain(engine, prompts, make_request):
+    """Submit every prompt, drain, and return {uid: tokens} and steps."""
+    for uid, p in enumerate(prompts):
+        engine.submit(make_request(uid, p))
+    engine.run_until_drained()
+    return engine
+
+
+def _first_divergence(got, want):
+    for uid in sorted(want):
+        g, w = got.get(uid, []), want[uid]
+        for i, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return {"uid": uid, "token": i, "got": a, "want": b}
+        if len(g) != len(w):
+            return {"uid": uid, "lengths": [len(g), len(w)]}
+    return None
+
+
+def phase_lm(torch, ops, ref, tcl, dev, card, cfg=None, reduced=None):
+    """(a) ``compile_lm`` of the full-width qwen1.5-0.5B on both systems,
+    (b) prefill and per-slot decode against the dense forward, layer by
+    layer, with 7 × num_layers crossbar launches a forward, (c) an
+    ``LMMember`` serving requests through ``MultiAppRouter`` against the
+    dense ``Engine``, token for token, then (e) the tenant's times; (d)
+    ``deploy()`` of the reference selftest's sensor + LM duo at the
+    reduced width. ``cfg``/``reduced`` default to the published config
+    and ``reduced_serving()`` (the CPU rehearsal passes smaller ones)."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.configs import qwen1p5_0p5b
+    from repro_torch.deploy import (AppSpec, DeploymentSpec, MultiAppRouter,
+                                    deploy)
+    from repro_torch.lm import LMMember, TransformerParams, compile_lm
+    from repro_torch.lm import compile as lmc
+    from repro_torch.lm import lm_request, tokens_from_state
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import Engine, Request
+
+    t_phase = time.perf_counter()
+    cfg = (cfg or qwen1p5_0p5b.CONFIG).replace(compute_dtype="float32",
+                                                decode_per_slot=True)
+    reduced = reduced or qwen1p5_0p5b.reduced_serving()
+    path = {k: 0 for k in ops.launch_counts()}
+    on_path = _on_path(ops, path)
+    per_forward = {k: 7 * cfg.num_layers if k == "crossbar_mvm" else 0
+                   for k in path}
+    gen = torch.Generator().manual_seed(21)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT),
+                         generator=gen).to(dev)
+    step = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen).to(dev)
+    pos = torch.tensor([LM_PROMPT, LM_PROMPT // 2 + 1], dtype=torch.int32,
+                       device=dev)
+    d_logits, d_cache = model_lib.prefill(cfg, params, {"tokens": toks})
+    d_step, d_next = model_lib.decode_step(cfg, params, d_cache, step, pos)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=gen).tolist() for n in LM_PROMPTS]
+    engine = _lm_drain(Engine(cfg, params, slots=LM_LANES,
+                              cache_len=LM_CACHE), prompts,
+                       lambda uid, p: Request(uid=uid, prompt=p,
+                                              max_new_tokens=LM_NEW))
+    oracle = {st.request.uid: st.generated for st in engine.finished}
+    head_bytes = 4 * cfg.padded_vocab * cfg.d_model
+    out = {"config": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "init_s": init_s, "systems": {}}
+
+    for system in ("memristor", "digital"):
+        res = {}
+        # (a) compile: program the 7 × num_layers linears, route nothing
+        torch.cuda.synchronize()
+        t0 = t_sys = time.perf_counter()
+        clm, per = on_path(compile_lm, TransformerParams(cfg, params),
+                           system=system, device=dev)
+        torch.cuda.synchronize()
+        res["compile_s"] = time.perf_counter() - t0
+        res["geometry"] = f"{clm.geom.rows}x{clm.geom.cols}"
+        res["cuda_memory_bytes"] = torch.cuda.memory_allocated(dev) \
+            if dev.type == "cuda" else None
+        _require("chip" not in clm.__dict__ and set(per.values()) == {0},
+                 f"compile_lm {system}: routed or launched {per}")
+        tile_bytes = sum(4 * (pl.tiles.gp.numel() + pl.tiles.gn.numel())
+                         for plans in clm.plans for pl in plans.values())
+        res["tile_bytes"] = tile_bytes
+
+        # (b) prefill and per-slot decode against the dense forward
+        (m_logits, m_cache), per = on_path(clm.prefill, toks)
+        _require(per == per_forward, f"prefill {system} launches {per}")
+        (m_step, m_next), per = on_path(clm.decode, m_cache, step, pos)
+        _require(per == per_forward, f"decode {system} launches {per}")
+        rels = {"prefill_logits": _rel(m_logits, d_logits),
+                "prefill_cache": max(_rel(m_cache[k], d_cache[k])
+                                     for k in d_cache),
+                "decode_logits": _rel(m_step, d_step),
+                "decode_cache": max(_rel(m_next[k], d_next[k])
+                                    for k in d_next)}
+        res["rel"] = rels
+        res["launches_per_forward"] = per
+        # each layer's residual stream, both paths from the same
+        # embedding (check launches: not the path's)
+        h_d = model_lib._embed_in(cfg, params, {"tokens": toks},
+                                  torch.float32)
+        h_m = h_d
+        positions = model_lib.positions_for(cfg, {}, 2, LM_PROMPT,
+                                            "prefill", dev)
+        windows = tf._layer_windows(cfg)
+        res["residual_rel"] = []
+        for layer in range(cfg.num_layers):
+            p_l = tf.layer_slice(params["stack"], layer)
+            kw = dict(positions=positions, mode="prefill", cache=None,
+                      window=windows[layer])
+            h_d = tf._block_apply(p_l, cfg, h_d, **kw)[0]
+            h_m = tf._block_apply(
+                p_l, cfg, h_m, **kw,
+                project=lmc._projector(clm.plans[layer], True),
+                mlp_fn=lmc._mlp_fn(clm.plans[layer], cfg, True))[0]
+            res["residual_rel"].append(_rel(h_m, h_d))
+        for key, r in rels.items():
+            _require(r <= LM_TOL, f"{system} {key}: rel {r:.3g} "
+                                  f"(residual rel by layer "
+                                  f"{res['residual_rel']})")
+
+        t_parity = time.perf_counter() - t_sys
+
+        # (c) an LMMember served through the multi-app router
+        def make_router():
+            member = LMMember(clm, lanes=LM_LANES, cache_len=LM_CACHE)
+            return MultiAppRouter({"lm": member}, lanes={"lm": LM_LANES})
+
+        tel = obs.configure(trace=False)
+        try:
+            router, per = on_path(_lm_drain, make_router(), prompts,
+                                  lambda uid, p: lm_request(
+                                      p, LM_NEW, uid=uid, key="lm"))
+            counted = tel.metrics.snapshot()["counters"].get("lm.tokens")
+        finally:
+            obs.disable()
+        got = {st.request.uid: tokens_from_state(st)
+               for st in router.finished}
+        stats = router.stats()
+        res["serving"] = {
+            "requests": len(got), "steps": router.steps, "launches": per,
+            "items": stats.apps["lm"].items, "lm_tokens_counter": counted,
+            "tokens_equal_engine": got == oracle,
+            "first_divergence": _first_divergence(got, oracle)}
+        _require(got == oracle, f"{system}: served tokens differ from the "
+                                f"dense Engine: "
+                                f"{res['serving']['first_divergence']}")
+        _require(stats.apps["lm"].items == len(LM_PROMPTS) * LM_NEW ==
+                 counted, f"{system}: items {stats.apps['lm'].items}, "
+                          f"lm.tokens {counted}")
+        _require(per["crossbar_mvm"] == 7 * cfg.num_layers *
+                 (router.steps + len(LM_PROMPTS)),
+                 f"{system} serving launches {per} in {router.steps} "
+                 f"steps")
+        t_serve = time.perf_counter() - t_sys - t_parity
+        # the serving rates once (memristor): the digital tenant runs the
+        # same glue on other tiles, whose K1 times the forward lines show
+        phase_lm_times(torch, ops, ref, tcl, cfg, params, clm,
+                       make_router if system == "memristor" else None,
+                       engine_factory=lambda: Engine(
+                           cfg, params, slots=LM_LANES, cache_len=LM_CACHE),
+                       prompts=prompts, toks=toks, system=system,
+                       tile_bytes=tile_bytes, head_bytes=head_bytes,
+                       card=card)
+        torch.cuda.synchronize()
+        res["seconds"] = {"compile_and_parity": t_parity,
+                          "serving": t_serve,
+                          "times": time.perf_counter() - t_sys - t_parity
+                          - t_serve}
+        out["systems"][system] = res
+        del clm, router, m_cache, m_next
+        torch.cuda.empty_cache()
+
+    # (d) deploy() of the reference selftest's duo at the reduced width
+    rparams = model_lib.init_params(reduced, 0, device=dev)
+    dep = deploy(DeploymentSpec(apps=(
+        AppSpec("sensor", "deep", items_per_second=100.0, lanes_per_chip=2),
+        AppSpec("lm", reduced, params=rparams, items_per_second=50.0,
+                lanes_per_chip=2, cache_len=64)),
+        n_chips=DEPLOY_CHIPS, device=dev))
+    rng = np.random.default_rng(0)
+    rprompts = [[int(t) for t in rng.integers(0, reduced.vocab_size, n)]
+                for n in (5, 3, 7, 4, 6)]
+    for p in rprompts:
+        _require(dep.submit_tokens("lm", p, max_new_tokens=6),
+                 "deploy duo: submit_tokens refused")
+    batches = [rng.uniform(0, 1, (3 + i, 784)).astype(np.float32)
+               for i in range(3)]
+    for b in batches:
+        dep.submit("sensor", b)
+    _, per = on_path(dep.run_until_drained)
+    got = dep.generated_tokens("lm")
+    eng = _lm_drain(Engine(reduced, rparams, slots=len(rprompts),
+                           cache_len=64), rprompts,
+                    lambda uid, p: Request(uid=uid, prompt=p,
+                                           max_new_tokens=6))
+    want = {st.request.uid: st.generated for st in eng.finished}
+    apps_sum, fleet = _roll_up(dep.stats())
+    rep = dep.report()
+    _require(got == want, f"deploy duo tokens differ from the Engine: "
+                          f"{_first_divergence(got, want)}")
+    _require(apps_sum == fleet and dep.stats().apps["lm"].items ==
+             6 * len(rprompts), f"deploy duo roll-up {apps_sum} vs {fleet}")
+    _require(set(rep.apps) == {"sensor", "lm"} and
+             rep.apps["lm"].area_mm2 > 0 and
+             abs(rep.area_mm2 - sum(a.area_mm2 for a in rep.apps.values()))
+             < 1e-9, f"deploy duo report rows {sorted(rep.apps)}")
+    out["deploy_duo"] = {
+        "config": reduced.name, "chips": DEPLOY_CHIPS,
+        "tokens_equal_engine": True, "launches": per, "roll_up": fleet,
+        "report_rows": {name: {"area_mm2": a.area_mm2,
+                               "power_mw": a.power_mw, "cores": a.cores}
+                        for name, a in rep.apps.items()}}
+    dep.close()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _line({"phase": "lm", **out, "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return path
+
+
+def _k1_blocks(dev, m, R, n):
+    """The thread blocks K1's launcher gives a partials-mode call: one
+    per 128 rows × 64 columns, times R row chunks when those alone would
+    leave SMs idle (``crossbar_mvm_launch``)."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    tiles = -(-n // 64) * -(-m // 128)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return tiles * (R if R > 1 and tiles < sms else 1)
+
+
+def phase_lm_times(torch, ops, ref, tcl, cfg, params, clm, make_router,
+                   engine_factory, prompts, toks, system, tile_bytes,
+                   head_bytes, card):
+    """The mapped tenant's decode steps/s and tokens/s beside the dense
+    ``Engine`` on the same requests (medians of three drains after a
+    warm-up, the two alternating; skipped when ``make_router`` is None);
+    one decode step's and one prefill's
+    wall, busy time and kernels, mapped and dense; K1 at the LM's shapes
+    (layer 0's wq, w1, w2 at 4 and 32 rows) against its plain version
+    and ``torch.matmul`` on the folded weights, with the bound."""
+    from repro_torch.lm import lm_request
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import Request
+
+    rates = {"mapped": [], "dense": []} if make_router else {}
+    steps = {}
+    for _ in range(1 + SERVE_DRAINS if rates else 0):  # 1st warms up
+        for kind in ("mapped", "dense"):
+            if kind == "mapped":
+                eng = make_router()
+                make = lambda uid, p: lm_request(  # noqa: E731
+                    p, LM_NEW, uid=uid, key="lm")
+            else:
+                eng = engine_factory()
+                make = lambda uid, p: Request(  # noqa: E731
+                    uid=uid, prompt=p, max_new_tokens=LM_NEW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _lm_drain(eng, prompts, make)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rates[kind].append((eng.steps / wall,
+                                len(prompts) * LM_NEW / wall))
+            steps[kind] = eng.steps
+    for kind, r in rates.items():
+        _line({"metric": "lm_serving", "system": system, "engine": kind,
+               "lanes": LM_LANES, "requests": len(prompts),
+               "tokens": len(prompts) * LM_NEW, "steps": steps[kind],
+               "drains_steps_per_s": [a for a, _ in r[1:]],
+               "warm_up_steps_per_s": r[0][0],
+               "steps_per_s": _quartiles([a for a, _ in r[1:]])[0],
+               "tokens_per_s": _quartiles([b for _, b in r[1:]])[0],
+               "card": card})
+
+    # one decode step (4 lanes at different positions) and one prefill
+    dev = toks.device
+    cache = clm.init_cache(LM_LANES, LM_CACHE)
+    t4 = toks[:, :1].repeat(2, 1)
+    p4 = torch.tensor([LM_PROMPT, 17, 40, 8], dtype=torch.int32, device=dev)
+    calls = {
+        ("decode", "mapped"): lambda: clm.decode(cache, t4, p4),
+        ("decode", "dense"): lambda: model_lib.decode_step(
+            cfg, params, cache, t4, p4),
+        ("prefill", "mapped"): lambda: clm.prefill(toks[:1]),
+        ("prefill", "dense"): lambda: model_lib.prefill(
+            cfg, params, {"tokens": toks[:1]})}
+    weights = {"decode": LM_LANES, "prefill": LM_PROMPT}
+    for (what, kind), fn in calls.items():
+        ms = _time_ms(torch, fn, iters=5)
+        before = ops.launch_counts()["crossbar_mvm"]
+        fn()
+        k1 = ops.launch_counts()["crossbar_mvm"] - before
+        _line({"metric": "lm_forward", "system": system, "what": what,
+               "path": kind, "rows": weights[what], "ms": ms,
+               "crossbar_launches": k1,
+               "bound_ms_k1_weights": tile_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_ms_head": head_bytes / HBM_BYTES_PER_S * 1e3,
+               **_busy(torch, fn, ms, n=2), "card": card})
+
+    # K1 at the LM's shapes, on layer 0's programmed tiles
+    gen = torch.Generator().manual_seed(23)
+    for name in LM_SHAPES:
+        p = clm.plans[0][name].tiles
+        R, C, rows, cols = p.gp.shape
+        w_fold = tcl.folded_weights(p, torch.float32).permute(
+            0, 2, 1, 3).reshape(R, rows, C * cols).contiguous()
+        for m in LM_SHAPE_ROWS:
+            x = (torch.rand((m, p.d_in), generator=gen) * 2 - 1).to(dev)
+            xt = tcl.tile_inputs(p, x)
+            xr = xt.transpose(0, 1)
+            got = ops.crossbar_mvm(xt, p.gp, p.gn, p.scale, partials=True)
+            plain = ref.crossbar_mvm_partials_ref(xt, p.gp, p.gn, p.scale)
+            e = _rel(got, plain)
+            _require(e <= TOL_F32, f"crossbar {system} {name} M={m}: rel "
+                                   f"{e:.3g}")
+            nbytes = 4 * (xt.numel() + 2 * p.gp.numel() + p.scale.numel() +
+                          got.numel())
+            t_bytes, t_ops = _bound(nbytes, TF32_PRODUCTS * 2 * m * R *
+                                    rows * C * cols, TF32_FLOPS)
+            _line({"kernel": "crossbar_mvm", "lm_shape": name,
+                   "system": system, "shape": [m, R, C, rows, cols],
+                   "d_in": p.d_in, "d_out": p.d_out, "mode": "partials",
+                   "rel": e, "max_abs_err": float((got - plain).abs().max()),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                   "blocks": _k1_blocks(dev, m, R, C * cols),
+                   **_times(torch,
+                            lambda: ops.crossbar_mvm(xt, p.gp, p.gn,
+                                                     p.scale, partials=True),
+                            lambda: ref.crossbar_mvm_partials_ref(
+                                xt, p.gp, p.gn, p.scale),
+                            lambda: torch.matmul(xr, w_fold)),
+                   "card": card})
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -1830,10 +2216,12 @@ def main() -> int:
         two, het, x_tuned, deploy_launches = phase_deploy(
             torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev, card)
         phase_deploy_times(torch, chip_mod, two, het, x_tuned, card)
+        lm_launches = phase_lm(torch, ops, ref, tcl, dev, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
-                          fleet_launches, rank_launches, deploy_launches):
+                          fleet_launches, rank_launches, deploy_launches,
+                          lm_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

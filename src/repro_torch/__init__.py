@@ -2,8 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package has the same
 sub-package layout (``kernels``, ``core``, ``obs``, ``chip``,
-``serving``, ``configs``, ``variability``) so each module has one
-counterpart there. It imports
+``serving``, ``configs``, ``variability``, ``data``, ``fleet``,
+``launch``, ``deploy``, ``tune``, ``models``, ``lm``) so each module
+has one counterpart there. It imports
 ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

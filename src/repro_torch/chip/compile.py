@@ -548,6 +548,12 @@ def compile_chip(networks: NetworksLike, *,
                 "compile_chip: params are only meaningful with an "
                 "MLPSpec (one weighted network); bare net tuples "
                 "compile analytic-only chips")
+        if hasattr(networks, "family") and hasattr(networks, "num_layers"):
+            raise NotImplementedError(
+                f"compile_chip maps MLPs only; "
+                f"{getattr(networks, 'family', '?')!r} model configs "
+                f"(transformer blocks, KV caches) are compiled by "
+                f"repro_torch.lm.compile_lm")
         seq = list(networks)
         if seq and isinstance(seq[0], int):       # a single bare Net
             seq = [tuple(networks)]

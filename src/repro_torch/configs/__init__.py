@@ -1,3 +1,48 @@
-"""The paper's application configurations, ported: ``paper_apps``
-(the five streaming apps of §IV.B and the published Tables II–VI).
-The reference's LM configs come with the LM slice."""
+"""Configurations, ported: ``paper_apps`` (the five streaming apps of
+§IV.B and the published Tables II–VI) and the architecture registry
+(``--arch <id>`` → :class:`ModelConfig`).
+
+The registry lists the ported architectures only. The reference's other
+architectures (moe, ssm, hybrid and the other dense configs) are ROADMAP
+Queue 1 item 9: asking for one raises ``KeyError`` naming it.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    ShapeConfig,
+    SHAPES,
+    SHAPES_BY_NAME,
+    applicable,
+)
+
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen1.5-0.5b": "repro_torch.configs.qwen1p5_0p5b",
+}
+
+# the reference's registry entries that are not ported yet
+_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m", "internvl2-26b",
+               "musicgen-large", "moonshot-v1-16b-a3b", "dbrx-132b",
+               "granite-3-8b", "gemma2-9b", "deepseek-7b")
+
+ARCH_IDS: List[str] = list(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch in _NOT_PORTED:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP Queue 1 "
+                       f"item 9); ported: {ARCH_IDS}")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return importlib.import_module(_ARCH_MODULES[arch])
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _module(arch).reduced()

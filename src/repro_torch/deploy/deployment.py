@@ -22,9 +22,14 @@ on that device. Weights of a paper app come from ``mlp_init`` with a
 ``jax.random`` draws cannot be replayed, so comparisons hand weights
 across as ``params``.
 
-Language-model tenants are not ported yet (ROADMAP Queue 1 item 8):
-deploying one, ``submit_tokens`` and ``generated_tokens`` raise
-``NotImplementedError``.
+A language-model tenant (an ``AppSpec`` whose network is a
+transformer config) compiles through :func:`repro_torch.lm.compile_lm`
+and joins the router as a :class:`repro_torch.lm.LMMember`: requests
+carry token prompts (:meth:`Deployment.submit_tokens`), one engine step
+is one greedy decode step of every lane, and the tenant is priced by
+its analytic chip, which ``compile_lm`` builds lazily and this module
+builds at deploy time to validate the tenant's rate, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -46,10 +51,6 @@ from repro_torch.fleet.shard import ShardedChip
 from repro_torch.launch.mesh import (FleetMesh, make_chip_submesh,
                                      make_fleet_mesh, mesh_spans_processes,
                                      rank_device)
-
-_LM_TODO = ("language-model tenants are not ported yet (ROADMAP Queue 1 "
-            "item 8: repro_torch.lm)")
-
 
 def _resolve_network(app: AppSpec, device: torch.device):
     """→ (networks-arg for compile_chip, params, compile kwargs)."""
@@ -92,7 +93,9 @@ def _resolve_network(app: AppSpec, device: torch.device):
 
 def _is_lm_network(net) -> bool:
     """LM tenants declare themselves by shape: a transformer config
-    (``family``/``num_layers``) instead of an MLP spec/tuple."""
+    (``family``/``num_layers``) instead of an MLP spec/tuple — the same
+    duck-typing ``compile_chip`` uses to point misrouted configs at
+    ``repro_torch.lm.compile_lm``."""
     return hasattr(net, "family") and hasattr(net, "num_layers")
 
 
@@ -147,7 +150,8 @@ class Deployment:
         self._recals: Dict[str, Any] = {}
         for app in spec.apps:
             if _is_lm_network(app.network):
-                raise NotImplementedError(f"app {app.name!r}: {_LM_TODO}")
+                self._members[app.name] = self._deploy_lm(app, spec)
+                continue
             networks, params, kw = _resolve_network(app, self.device)
             app_mesh = self._submeshes.get(app.system, self.mesh)
             app_chips = app_mesh.size
@@ -212,6 +216,65 @@ class Deployment:
             self.router = cls(streamable, lanes=lanes,
                               queue_limits=limits,
                               use_kernel=spec.use_kernel)
+
+    # ---------------- LM tenants (repro_torch.lm) ------------------- #
+    def _deploy_lm(self, app: AppSpec, spec: DeploymentSpec) -> _Member:
+        """Compile and place one language-model tenant: the
+        transformer's per-layer linears map through
+        :func:`repro_torch.lm.compile_lm` onto programmed tile plans on
+        the deployment's device, and a :class:`repro_torch.lm.LMMember`
+        joins the shared router next to the sensor members —
+        ``items_per_second`` reads as tokens/second and
+        ``lanes_per_chip`` as concurrent decode sequences."""
+        from repro_torch import lm as lm_lib
+
+        if mesh_spans_processes(self.mesh):
+            raise ValueError(
+                f"app {app.name!r}: LM tenants are single-process — "
+                "decode is one batched call over the lanes, not an SPMD "
+                "collective")
+        if app.analytic:
+            raise ValueError(
+                f"app {app.name!r}: analytic=True does not apply to "
+                "an LM tenant — compile_lm(...).report() is the "
+                "sizing surface")
+        if app.noise is not None:
+            raise ValueError(
+                f"app {app.name!r}: noise models are not wired "
+                "through compile_lm yet (sensor tenants only)")
+        app_mesh = self._submeshes.get(app.system, self.mesh)
+        app_chips = app_mesh.size
+        model = lm_lib.TransformerParams(app.network, app.params) \
+            if app.params is not None else app.network
+        clm = lm_lib.compile_lm(model, system=app.system,
+                                geometry=app.geom,
+                                tokens_per_second=app.items_per_second,
+                                seed=app.seed, device=self.device)
+        # same fleet-scope SLO validation as the analytic sensor path:
+        # compile_lm defers (its chip is built here, on first access),
+        # the one diagnostic carries both levels
+        validate_stream_rate(
+            app.items_per_second, clm.chip.replication * app_chips,
+            clm.chip.route, spec.strict_rate, context="deploy",
+            fabric=(f"fleet replica(s) ({app_chips} chip(s) x "
+                    f"{clm.chip.replication} replica(s))"),
+            remedy=("Add chips of this app's system, use a larger "
+                    "core geometry, or lower the app's tokens/second "
+                    "SLO."),
+            stacklevel=5, chip_replicas=clm.chip.replication)
+        member = lm_lib.LMMember(
+            clm, lanes=app.lanes_per_chip * app_chips,
+            cache_len=app.cache_len or lm_lib.DEFAULT_CACHE_LEN,
+            n_chips=app_chips, mesh=app_mesh)
+        return _Member(app, clm.chip, member, None, clm.params)
+
+    def _lm_member(self, app: str) -> _Member:
+        m = self._streaming_member(app)
+        if not getattr(m.sharded, "is_lm", False):
+            raise TypeError(
+                f"app {app!r} is a sensor tenant — submit_tokens is "
+                "the LM verb; use submit/stream")
+        return m
 
     # ---------------- introspection -------------------------------- #
     @property
@@ -283,6 +346,11 @@ class Deployment:
         spans ranks, ``x`` is this rank's rows and the result a CPU
         tensor of this rank's outputs (``ShardedChip.stream_local``)."""
         m = self._streaming_member(app)
+        if getattr(m.sharded, "is_lm", False):
+            raise TypeError(
+                f"app {app!r} is an LM tenant — one-shot stream is a "
+                "sensor verb; use submit_tokens (or CompiledLM."
+                "prefill/decode directly)")
         uk = self.spec.use_kernel if use_kernel is None else use_kernel
         if m.sharded.is_distributed:
             return torch.from_numpy(m.sharded.stream_local(x, use_kernel=uk))
@@ -291,19 +359,42 @@ class Deployment:
     def submit(self, app: str, items) -> bool:
         """Queue one item-stream request for ``app`` on the shared
         router; False = that app's admission queue is full."""
-        self._streaming_member(app)
+        m = self._streaming_member(app)
+        if getattr(m.sharded, "is_lm", False):
+            raise TypeError(
+                f"app {app!r} is an LM tenant — its requests carry a "
+                "token prompt, not an item array; use submit_tokens")
         return self._live_router().submit_app(app, items) is not None
 
     def submit_tokens(self, app: str, prompt,
                       max_new_tokens: int = 16) -> bool:
-        """Queue one decode request for an LM tenant — not ported yet."""
-        self._member(app)
-        raise NotImplementedError(f"submit_tokens: {_LM_TODO}")
+        """Queue one decode request for LM tenant ``app``: prefill the
+        prompt on admission, then stream ``max_new_tokens`` greedy
+        tokens — one token per engine step per lane, through the same
+        keyed scheduler (and the same per-app accounting) as the
+        sensor items. False = the app's admission queue is full."""
+        from repro_torch.lm import lm_request
+
+        m = self._lm_member(app)
+        prompt = tuple(int(t) for t in prompt)
+        budget = m.sharded.cache_len
+        if len(prompt) + max_new_tokens > budget:
+            raise ValueError(
+                f"submit_tokens: prompt ({len(prompt)}) + "
+                f"max_new_tokens ({max_new_tokens}) exceeds the "
+                f"app's KV cache_len ({budget}) — raise "
+                "AppSpec.cache_len or shorten the request")
+        req = lm_request(prompt, max_new_tokens)
+        return self._live_router().submit_app(app, req) is not None
 
     def generated_tokens(self, app: str) -> Dict[int, List[int]]:
-        """Generated token ids of an LM tenant — not ported yet."""
-        self._member(app)
-        raise NotImplementedError(f"generated_tokens: {_LM_TODO}")
+        """``{request uid: generated token ids}`` for every FINISHED
+        request of LM tenant ``app``."""
+        from repro_torch.lm import tokens_from_state
+
+        self._lm_member(app)
+        return {st.request.uid: tokens_from_state(st)
+                for st in self._live_router()._finished_for(app)}
 
     def step(self) -> int:
         return self._live_router().step()
@@ -335,7 +426,12 @@ class Deployment:
         :meth:`stats` / :meth:`variability_report`. Returns the
         monitor. The chip is resolved per probe, so live reprograms are
         always scored against current state."""
-        self._streaming_member(app)
+        m = self._streaming_member(app)
+        if getattr(m.sharded, "is_lm", False):
+            raise NotImplementedError(
+                f"app {app!r} is an LM tenant — accuracy monitors "
+                "score an MLP canary batch against the programmed "
+                "chip; LM quality tracking is future work")
         from repro_torch.variability.monitor import AccuracyMonitor
 
         monitor = AccuracyMonitor(lambda: self._member(app).chip,
@@ -490,6 +586,12 @@ class Deployment:
                 "repro_torch.tune) instead of resizing in place")
         if mesh is None:
             mesh = make_fleet_mesh(n_chips, device=self.device)
+        for m in self._members.values():
+            if getattr(m.sharded, "is_lm", False):
+                # fresh per-lane KV cache FIRST: the router's requeued
+                # lanes re-admit through on_admit, which re-prefills
+                # each continuation into it
+                m.sharded.resize(lanes=m.spec.lanes_per_chip * mesh.size)
         self.mesh = mesh
         self.n_chips = mesh.size
         if self.router is not None:        # its members: every streamer
@@ -508,6 +610,11 @@ class Deployment:
         their next item on — §III.D program-once, made a live
         operation. Call between engine steps."""
         m = self._streaming_member(app)
+        if getattr(m.sharded, "is_lm", False):
+            raise NotImplementedError(
+                f"app {app!r} is an LM tenant — live reprogram is a "
+                "sensor-tenant verb for now; recompile via "
+                "repro_torch.lm.compile_lm and redeploy")
         # weight_bits/device_model/r_seg ride on the chip itself
         # (CompiledChip.program_kw) — the swap re-encodes exactly the
         # way the compile did

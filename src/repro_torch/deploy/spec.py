@@ -62,9 +62,11 @@ class AppSpec:
       * a :class:`repro_torch.core.crossbar_layer.ProgrammedMLP` —
         already-programmed state;
       * a language-model config (anything with ``family`` and
-        ``num_layers``) — not ported yet: deploying one raises
-        ``NotImplementedError`` (ROADMAP Queue 1 item 8). ``cache_len``
-        is its per-lane KV ring and is validated here all the same.
+        ``num_layers``, e.g. ``repro_torch.configs.qwen1p5_0p5b``) —
+        compiled by ``repro_torch.lm.compile_lm`` (``params``: its
+        parameter tree, else a seeded init) and served one greedy
+        token per engine step per lane; ``cache_len`` is its per-lane
+        KV ring (default ``repro_torch.lm.DEFAULT_CACHE_LEN``).
 
     ``system`` accepts any alias (``"memristor"``/``"1t1m"`` /
     ``"digital"``/``"sram"``); ``items_per_second`` is the tenant's SLO

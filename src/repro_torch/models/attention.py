@@ -1,0 +1,269 @@
+"""GQA attention: chunked prefill, ring-buffer windowed KV caches,
+gemma-style logit softcaps, RoPE, QKV bias.
+
+Port of ``repro.models.attention`` on one device (the reference's
+logical sharding annotations have no counterpart here; ROADMAP Queue 1
+item 9 maps them onto torch meshes). The same arithmetic in the same
+dtypes: scores and the weighted sum accumulate in f32 whatever the
+compute dtype (the reference's ``preferred_element_type=f32``), and a
+bf16 KV cache is read beside f32 queries by upcasting it, where JAX
+promotes implicitly.
+
+Layout: q is kept grouped as (B, S, KH_eff, G, dh) where KH_eff =
+num_kv_heads * cfg.kv_repeat, so scores are computed grouped and the
+KV cache is never materialized at full head count.
+
+Functional contract: ``attn_apply`` returns a new cache and leaves the
+one it was given as it was (callers reuse a prefill cache for several
+decodes).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init, softcap
+
+NEG_INF = -2.0e38
+
+
+# --------------------------------------------------------------------- #
+# params
+# --------------------------------------------------------------------- #
+def attn_init(generators, cfg, dtype: torch.dtype, *,
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    """``generators``: four ``torch.Generator`` for wq, wk, wv, wo."""
+    d, H, KH, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gq, gk, gv, go = generators
+    p = {
+        "wq": dense_init(gq, (d, H, dh), dtype, fan_in=d, device=device),
+        "wk": dense_init(gk, (d, KH, dh), dtype, fan_in=d, device=device),
+        "wv": dense_init(gv, (d, KH, dh), dtype, fan_in=d, device=device),
+        "wo": dense_init(go, (H, dh, d), dtype, fan_in=H * dh,
+                         device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, dh), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((KH, dh), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((KH, dh), dtype=dtype, device=device)
+    return p
+
+
+# --------------------------------------------------------------------- #
+# core attend
+# --------------------------------------------------------------------- #
+def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor
+                    ) -> torch.Tensor:
+    scores = torch.where(mask, scores, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    m = torch.clamp(m, min=-1e30)  # rows that are fully masked stay finite
+    e = torch.exp(scores - m)
+    e = torch.where(mask, e, 0.0)
+    return e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+def _attend_block(q, k, v, q_pos, k_pos, *, window, cap, scale):
+    """q: (B, Sq, KH, G, dh); k/v: (B, T, KH, dh); *_pos int (B, Sq) /
+    (B, T). ``window``: None, or an int-like (0 = full attention)."""
+    dt = q.dtype
+    f32 = torch.float32
+    scores = torch.einsum("bqkgd,btkd->bkgqt", q.to(f32),
+                          k.to(f32)) * scale
+    scores = softcap(scores, cap)
+    mask = (k_pos[:, None, :] <= q_pos[:, :, None]) & (k_pos[:, None, :] >= 0)
+    if window is not None and int(window) > 0:
+        mask = mask & (k_pos[:, None, :] > (q_pos[:, :, None] - int(window)))
+    w = _masked_softmax(scores, mask[:, None, None, :, :])
+    out = torch.einsum("bkgqt,btkd->bqkgd", w.to(dt).to(f32), v.to(f32))
+    return out.to(dt)
+
+
+def attend(q, k, v, q_pos, k_pos, *, window=None, cap=0.0, scale=1.0,
+           q_chunk: int = 1024):
+    """Chunked attention over the query axis (memory ~ Sq_chunk * T);
+    each query row is independent, so the chunks compute the unchunked
+    values (to the rounding of another batched product)."""
+    Sq = q.shape[1]
+    if Sq <= q_chunk or Sq % q_chunk != 0:
+        return _attend_block(q, k, v, q_pos, k_pos,
+                             window=window, cap=cap, scale=scale)
+    return torch.cat([
+        _attend_block(q[:, i:i + q_chunk], k, v, q_pos[:, i:i + q_chunk],
+                      k_pos, window=window, cap=cap, scale=scale)
+        for i in range(0, Sq, q_chunk)], dim=1)
+
+
+# --------------------------------------------------------------------- #
+# cache helpers (ring buffer when T < full sequence)
+# --------------------------------------------------------------------- #
+def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(position, head) symmetric int8 quantization of K/V rows --
+    the paper's 8-bit ex-situ storage discipline applied to the decode
+    cache. Returns (codes int8, scale f32 without dh)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def _dequant_kv(q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def init_attn_cache(cfg, batch: int, cache_len: int, dtype: torch.dtype,
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    KH_eff = cfg.num_kv_heads * cfg.kv_repeat
+    shp = (batch, cache_len, KH_eff, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sshp = shp[:-1]
+        return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
+                "v": torch.zeros(shp, dtype=torch.int8, device=device),
+                "ks": torch.zeros(sshp, dtype=torch.float32, device=device),
+                "vs": torch.zeros(sshp, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def _ring_positions(pos: torch.Tensor, T: int) -> torch.Tensor:
+    """Absolute position stored in each ring slot after writing ``pos``
+    (a scalar → (T,), or (B,) → (B, T)); never-written slots come out
+    negative."""
+    j = torch.arange(T, dtype=torch.int32, device=pos.device)
+    p = pos[..., None]
+    return p - ((p % T - j) % T)
+
+
+def _store_prefill(cache_len: int, k: torch.Tensor) -> torch.Tensor:
+    """Store a prefilled sequence (B, S, ...) into a ring of length T:
+    zero-padded when it fits, else its last T positions, each at its
+    ring slot (position % T). Serves the (B, S, KH, dh) rows and their
+    (B, S, KH) int8 scales alike."""
+    S = k.shape[1]
+    if S <= cache_len:
+        pad = [0, 0] * (k.dim() - 2) + [0, cache_len - S]
+        return torch.nn.functional.pad(k, pad)
+    last = k[:, S - cache_len:]
+    shift = (S - cache_len) % cache_len
+    return torch.roll(last, shift, dims=1)
+
+
+# --------------------------------------------------------------------- #
+# full layer apply
+# --------------------------------------------------------------------- #
+def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
+               mode: str, cache: Optional[Dict] = None,
+               window=None, project=None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (B, S, d). positions: (B, S) absolute token positions.
+
+    mode: "train" (no cache), "prefill" (build cache), "decode" (S == 1,
+    read + update cache; ``cfg.decode_per_slot`` lets every batch lane
+    hold its own position — the continuous-batching serving path).
+
+    ``window``: None, or the layer's sliding window (0 = full). A Python
+    int also sizes a prefill's ring (T = min(S, cfg.sliding_window));
+    the stacks pass each layer's window as a 0-d tensor, as the
+    reference's scan does, so their prefill keeps all S positions.
+
+    project: optional ``(name, x (B, S, d_in)) -> (B, S, d_out)``
+    override for the four linear projections ("wq"/"wk"/"wv"/"wo");
+    ``repro_torch.lm`` routes them through crossbar-mapped tile grids
+    while rope, softmax and cache surgery below stay plain tensor glue.
+    QKV biases are still added here, so a projection backend must not
+    fold them in.
+    Returns (out (B, S, d), new_cache)."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    H, KH, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    KH_eff = KH * cfg.kv_repeat
+    G = H // KH_eff
+    scale = cfg.attn_scale if cfg.attn_scale else dh ** -0.5
+
+    if project is None:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    else:
+        q = project("wq", x).reshape(B, S, H, dh)
+        k = project("wk", x).reshape(B, S, KH, dh)
+        v = project("wv", x).reshape(B, S, KH, dh)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.kv_repeat > 1:
+        k = torch.repeat_interleave(k, cfg.kv_repeat, dim=2)
+        v = torch.repeat_interleave(v, cfg.kv_repeat, dim=2)
+    q = q.reshape(B, S, KH_eff, G, dh)
+
+    new_cache = None
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("attn_apply: decode takes one token a lane "
+                             "and a cache")
+        T = cache["k"].shape[1]
+        quant = cfg.kv_cache_dtype == "int8"
+        if quant:
+            kq, ks_new = _quant_kv(k)
+            vq, vs_new = _quant_kv(v)
+        else:
+            # explicit downcast into the cache dtype (round to nearest
+            # even, as the reference's astype)
+            kq = k.to(cache["k"].dtype)
+            vq = v.to(cache["v"].dtype)
+        new_cache = {}
+        if cfg.decode_per_slot:
+            # continuous batching: every slot decodes at its own position
+            pos_b = positions[:, 0]                      # (B,)
+            at = (torch.arange(B, device=x.device), (pos_b % T).long())
+            new_cache["k"] = cache["k"].index_put(at, kq[:, 0])
+            new_cache["v"] = cache["v"].index_put(at, vq[:, 0])
+            if quant:
+                new_cache["ks"] = cache["ks"].index_put(at, ks_new[:, 0])
+                new_cache["vs"] = cache["vs"].index_put(at, vs_new[:, 0])
+            k_pos = _ring_positions(pos_b, T)
+        else:
+            pos = positions[0, 0]  # lockstep decode: one position
+            idx = (pos % T).reshape(1).long()
+            new_cache["k"] = cache["k"].index_copy(1, idx, kq)
+            new_cache["v"] = cache["v"].index_copy(1, idx, vq)
+            if quant:
+                new_cache["ks"] = cache["ks"].index_copy(1, idx, ks_new)
+                new_cache["vs"] = cache["vs"].index_copy(1, idx, vs_new)
+            k_pos = _ring_positions(pos, T)[None, :].expand(B, T)
+        if quant:
+            k_att = _dequant_kv(new_cache["k"], new_cache["ks"], dt)
+            v_att = _dequant_kv(new_cache["v"], new_cache["vs"], dt)
+        else:
+            k_att, v_att = new_cache["k"], new_cache["v"]
+        out = _attend_block(q, k_att, v_att, positions, k_pos,
+                            window=window, cap=cfg.attn_softcap, scale=scale)
+    else:
+        out = attend(q, k, v, positions, positions,
+                     window=window, cap=cfg.attn_softcap, scale=scale)
+        if mode == "prefill":
+            T = min(S, cfg.sliding_window) if isinstance(window, int) \
+                and window > 0 else S
+            if cfg.kv_cache_dtype == "int8":
+                kq, ks_new = _quant_kv(k)
+                vq, vs_new = _quant_kv(v)
+                new_cache = {"k": _store_prefill(T, kq),
+                             "v": _store_prefill(T, vq),
+                             "ks": _store_prefill(T, ks_new),
+                             "vs": _store_prefill(T, vs_new)}
+            else:
+                new_cache = {"k": _store_prefill(T, k),
+                             "v": _store_prefill(T, v)}
+
+    out = out.reshape(B, S, H, dh)
+    if project is None:
+        out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    else:
+        out = project("wo", out.reshape(B, S, H * dh))
+    return out, new_cache

@@ -1,0 +1,147 @@
+"""Shared primitive layers (plain PyTorch on tensors, dict params).
+
+Port of ``repro.models.layers``: the same arithmetic in the same order
+and dtypes. ``dense_init``/``embed_init`` draw a truncated normal on
+[-2, 2] from a ``torch.Generator``; the reference's ``jax.random``
+draws cannot be replayed, so comparisons hand weights across
+(``repro_torch.models.model.params_from_numpy``). ``cross_entropy``
+and the causal-conv helpers belong to the training and SSM slice
+(ROADMAP Queue 1 item 9).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def to_dtype(name: str) -> torch.dtype:
+    """A config's dtype string (``"float32"``, ``"bfloat16"``) → torch."""
+    return _DTYPES[name]
+
+
+def cdtype(cfg) -> torch.dtype:
+    return to_dtype(cfg.compute_dtype)
+
+
+def pdtype(cfg) -> torch.dtype:
+    return to_dtype(cfg.param_dtype)
+
+
+# --------------------------------------------------------------------- #
+# init helpers
+# --------------------------------------------------------------------- #
+def _truncated_normal(shape: Sequence[int], generator: torch.Generator,
+                      device: torch.device) -> torch.Tensor:
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                       generator=generator)
+
+
+def dense_init(generator: torch.Generator, shape, dtype: torch.dtype,
+               fan_in: Optional[int] = None, *,
+               device: torch.device) -> torch.Tensor:
+    fan_in = fan_in if fan_in is not None else shape[-2] \
+        if len(shape) > 1 else shape[-1]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    return (_truncated_normal(shape, generator, device) * std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype: torch.dtype, *,
+               device: torch.device) -> torch.Tensor:
+    return _truncated_normal(shape, generator, device).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# norms / activations
+# --------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "silu":
+        return torch.nn.functional.silu
+    if name == "gelu":
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+# --------------------------------------------------------------------- #
+# RoPE (split halves, as the reference: not interleaved pairs)
+# --------------------------------------------------------------------- #
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to
+    (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)   # (half,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# MLP (SwiGLU / GeGLU)
+# --------------------------------------------------------------------- #
+def mlp_init(generators, d_model: int, d_ff: int, dtype: torch.dtype, *,
+             device: torch.device) -> dict:
+    """``generators``: three ``torch.Generator`` for w1, w3, w2."""
+    g1, g3, g2 = generators
+    return {
+        "w1": dense_init(g1, (d_model, d_ff), dtype, device=device),
+        "w3": dense_init(g3, (d_model, d_ff), dtype, device=device),
+        "w2": dense_init(g2, (d_ff, d_model), dtype, fan_in=d_ff,
+                         device=device),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str,
+              compute_dtype: torch.dtype) -> torch.Tensor:
+    x = x.to(compute_dtype)
+    h = torch.matmul(x, p["w1"].to(compute_dtype))
+    g = torch.matmul(x, p["w3"].to(compute_dtype))
+    h = act_fn(act)(h) * g
+    return torch.matmul(h, p["w2"].to(compute_dtype))
+
+
+# --------------------------------------------------------------------- #
+# Embedding / LM head
+# --------------------------------------------------------------------- #
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    return table[tokens].to(compute_dtype)
+
+
+def lm_logits(h: torch.Tensor, head_w: torch.Tensor,
+              final_cap: float) -> torch.Tensor:
+    """h: (..., d); head_w: (d, padded_vocab). The weights are rounded
+    to h's dtype and the product accumulates and leaves in f32, as the
+    reference's ``preferred_element_type=f32`` (products of bf16 values
+    are exact in f32)."""
+    f32 = torch.float32
+    logits = torch.matmul(h.to(f32), head_w.to(h.dtype).to(f32))
+    return softcap(logits, final_cap)

@@ -1,0 +1,199 @@
+"""Public model API: init / forward / prefill / decode_step.
+
+Port of ``repro.models.model`` (the training loss is ROADMAP Queue 1
+item 9). The same batch-dict conventions (global shapes):
+
+  prefill: {"tokens": (B, S) int} or {"embeds": (B, S, d)} → cache
+  decode:  {"tokens": (B, 1) int, "pos": () or (B,) int, cache}
+
+and the same parameter and cache layouts: a stacked leading layer axis,
+wq (L, d, H, dh), wo (L, H, dh, d), cache (L, B, T, KH, dh). Every
+function here runs on the device its parameters live on.
+
+Weights: :func:`init_params` draws each leaf from a ``torch.Generator``
+of the target device, seeded by the splitmix64 mix of (seed, leaf,
+layer) — deterministic for a seed and a device type (a CPU and a CUDA
+init of one seed differ). The reference's threefry draws cannot be
+replayed; :func:`params_from_numpy` carries its parameter tree across
+instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (cdtype, dense_init, embed_init,
+                                       embed_tokens, lm_logits, pdtype,
+                                       rms_norm)
+from repro_torch.runtime import DeviceLike, resolve_device
+from repro_torch.variability.noise import stream_seed
+
+Params = Dict[str, Any]
+
+# generator purposes: the embedding table, the block stack, the head
+_EMBED, _STACK, _HEAD = 0, 1, 2
+
+
+def _device_of(params: Params) -> torch.device:
+    return params["final_norm"].device
+
+
+# --------------------------------------------------------------------- #
+# params
+# --------------------------------------------------------------------- #
+def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Params:
+    """Seeded parameters on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+
+    def gen(*words) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(
+            stream_seed(seed, *words))
+
+    dt = pdtype(cfg)
+    stack = tf.get_stack(cfg)
+    p: Params = {
+        "embed": {"table": embed_init(gen(_EMBED), (cfg.padded_vocab,
+                                                    cfg.d_model), dt,
+                                      device=dev)},
+        "stack": stack.init(lambda layer, leaf: gen(_STACK, layer, leaf),
+                            cfg, dev),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": dense_init(gen(_HEAD), (cfg.d_model,
+                                                     cfg.padded_vocab), dt,
+                                        device=dev)}
+    return p
+
+
+def params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Params:
+    """The reference's transformer parameter tree (numpy arrays, or
+    anything ``np.asarray`` takes, under the same keys) → the port's, in
+    ``cfg.param_dtype`` on ``device`` (default ``cuda``). The layouts are
+    the same, so this is the identity on shapes; the parity tests use it,
+    the serving path does not."""
+    dev = resolve_device(device)
+    dt = pdtype(cfg)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        a = np.asarray(x, np.float32)
+        return torch.tensor(a, device=dev).to(dt)
+
+    out = conv(dict(tree))
+    missing = {"embed", "stack", "final_norm"} - set(out)
+    if missing:
+        raise ValueError(f"params_from_numpy: not a transformer parameter "
+                         f"tree (missing {sorted(missing)})")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# forward paths
+# --------------------------------------------------------------------- #
+def _tokens(tokens, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=device).long()
+
+
+def _embed_in(cfg, params, batch, dtype: torch.dtype) -> torch.Tensor:
+    dev = _device_of(params)
+    if "embeds" in batch:
+        h = torch.as_tensor(batch["embeds"], device=dev).to(dtype)
+    else:
+        h = embed_tokens(params["embed"]["table"],
+                         _tokens(batch["tokens"], dev), dtype)
+    if cfg.scale_embed:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    return h
+
+
+def _head(cfg, params, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        w = params["embed"]["table"].T
+    else:
+        w = params["lm_head"]["w"]
+    return lm_logits(h, w, cfg.final_softcap)
+
+
+def positions_for(cfg, batch, B: int, S: int, mode: str,
+                  device: torch.device) -> torch.Tensor:
+    """(B, S) int32 token positions: per-lane (``decode_per_slot``) or
+    one shared position for a decode, 0..S-1 otherwise."""
+    if mode == "decode":
+        pos = torch.as_tensor(batch["pos"], device=device).to(torch.int32)
+        if cfg.decode_per_slot:
+            return pos.reshape(B, 1)
+        return pos.reshape(1, 1).expand(B, S)
+    return torch.arange(S, dtype=torch.int32, device=device)[None, :] \
+        .expand(B, S)
+
+
+def forward(cfg, params, batch, mode: str = "train",
+            cache=None) -> Tuple[torch.Tensor, Any, Dict]:
+    """Returns (hidden, cache, aux). Hidden is post-norm."""
+    dtype = cdtype(cfg)
+    h = _embed_in(cfg, params, batch, dtype)
+    B, S = h.shape[0], h.shape[1]
+    positions = positions_for(cfg, batch, B, S, mode, h.device)
+    stack = tf.get_stack(cfg)
+    h, new_cache, aux = stack.apply(params["stack"], cfg, h,
+                                    positions=positions, mode=mode,
+                                    cache=cache)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return h, new_cache, aux
+
+
+def prefill(cfg, params, batch) -> Tuple[torch.Tensor, Any]:
+    """Returns (last-token logits (B, padded_vocab) f32, cache)."""
+    h, cache, _ = forward(cfg, params, batch, mode="prefill")
+    logits = _head(cfg, params, h[:, -1:, :])[:, 0, :]
+    return logits, cache
+
+
+def decode_step(cfg, params, cache, tokens, pos) -> Tuple[torch.Tensor, Any]:
+    """tokens: (B, 1); pos: scalar (position being written), or (B,)
+    per-slot positions when cfg.decode_per_slot is set. The given cache
+    is left as it was; the updated one is returned."""
+    batch = {"tokens": tokens, "pos": pos}
+    h, new_cache, _ = forward(cfg, params, batch, mode="decode", cache=cache)
+    logits = _head(cfg, params, h)[:, 0, :]
+    return logits, new_cache
+
+
+def init_cache(cfg, batch: int, cache_len: int,
+               dtype: torch.dtype = torch.bfloat16, *,
+               device: DeviceLike = None):
+    return tf.get_stack(cfg).init_cache(cfg, batch, cache_len, dtype,
+                                        resolve_device(device))
+
+
+# --------------------------------------------------------------------- #
+# parameter counting (analytic)
+# --------------------------------------------------------------------- #
+def count_params(cfg, active_only: bool = False) -> int:
+    """The leaves :func:`init_params` would make, counted from the
+    config (``active_only`` matters for MoE configs only, which are not
+    ported: :func:`transformer.get_stack` raises for them)."""
+    tf.get_stack(cfg)
+    d, H, KH, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    block = (d * H * dh + 2 * d * KH * dh + H * dh * d
+             + 3 * d * cfg.d_ff + 2 * d)
+    if cfg.qkv_bias:
+        block += H * dh + 2 * KH * dh
+    if cfg.post_block_norm:
+        block += 2 * d
+    total = cfg.padded_vocab * d + cfg.num_layers * block + d
+    if not cfg.tie_embeddings:
+        total += d * cfg.padded_vocab
+    return int(total)
+
+
+def count_nonembedding_params(cfg, active_only: bool = False) -> int:
+    n = count_params(cfg, active_only)
+    n -= cfg.padded_vocab * cfg.d_model  # input table (lookup, not matmul)
+    return int(n)

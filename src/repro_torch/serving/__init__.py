@@ -1,11 +1,13 @@
-"""Slot-scheduled streaming (port of ``repro.serving``'s item-stream
-schedulers)."""
-from repro_torch.serving.engine import (ItemRequest, ItemRequestState,
+"""Slot-scheduled streaming (port of ``repro.serving``): the item-stream
+schedulers and the dense transformer's decode ``Engine``."""
+from repro_torch.serving.engine import (Engine, ItemRequest,
+                                        ItemRequestState,
                                         ItemStreamScheduler,
-                                        KeyedItemStreamScheduler,
-                                        SlotScheduler, StreamingEngine,
-                                        StreamSpec)
+                                        KeyedItemStreamScheduler, Request,
+                                        RequestState, SlotScheduler,
+                                        StreamingEngine, StreamSpec)
 
-__all__ = ["ItemRequest", "ItemRequestState", "ItemStreamScheduler",
-           "KeyedItemStreamScheduler", "SlotScheduler", "StreamingEngine",
+__all__ = ["Engine", "ItemRequest", "ItemRequestState",
+           "ItemStreamScheduler", "KeyedItemStreamScheduler", "Request",
+           "RequestState", "SlotScheduler", "StreamingEngine",
            "StreamSpec"]

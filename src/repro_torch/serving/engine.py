@@ -7,23 +7,27 @@ admitted into free lanes without stalling others, ONE batched step for
 all active lanes per engine step, lanes retiring the moment their
 request completes — and the item-stream schedulers the compiled chip
 plugs into (:class:`KeyedItemStreamScheduler`,
-:class:`ItemStreamScheduler`). The scheduler is plain Python and numpy;
-the batched payload step (``_stream_batch``) is where the device work
-happens. The transformer decode ``Engine`` is not part of this port yet.
+:class:`ItemStreamScheduler`), and the dense transformer's greedy decode
+:class:`Engine`. The scheduler is plain Python and numpy; the batched
+payload step (``_stream_batch``, or one batched decode) is where the
+device work happens.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Protocol, \
+from typing import Any, Callable, Deque, Dict, List, Optional, Protocol, \
     runtime_checkable
 
 import numpy as np
+import torch
 
+from repro_torch.models import model as model_lib
 from repro_torch.obs.core import NULL_RECORDER, StepRecorder
 from repro_torch.obs.core import current as _obs_current
 from repro_torch.obs.metrics import DEFAULT_RESERVOIR, Reservoir
+from repro_torch.serving import kvcache
 
 
 # --------------------------------------------------------------------- #
@@ -622,3 +626,98 @@ class ItemStreamScheduler(KeyedItemStreamScheduler):
 
     def _stream_batch_key(self, key, batch: np.ndarray) -> np.ndarray:
         return self._stream_batch(batch)
+
+
+# --------------------------------------------------------------------- #
+# the transformer decode engine
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int = 16
+    eos_id: int = -1            # -1: never; stop on max_new_tokens
+
+
+@dataclasses.dataclass
+class RequestState:
+    request: Request
+    slot: int
+    pos: int                    # next position to write
+    generated: List[int] = dataclasses.field(default_factory=list)
+    prefill_s: float = 0.0
+    finished: bool = False
+
+
+def greedy(logits: torch.Tensor, generator: torch.Generator
+           ) -> torch.Tensor:
+    """The default sampler: argmax, the first index on ties."""
+    return torch.argmax(logits, dim=-1)
+
+
+class Engine(SlotScheduler):
+    """Continuous-batching greedy decode of a dense transformer: one
+    B = 1 prefill a request at admission, written into its lane's KV
+    slot, then ONE batched per-slot decode over every lane a step (idle
+    lanes decode junk that position masking ignores and the next admit
+    overwrites). Runs where ``params`` live. ``sampler(logits,
+    generator)`` picks each lane's next token (default: greedy)."""
+
+    def __init__(self, cfg, params, *, slots: int = 4,
+                 cache_len: int = 256,
+                 sampler: Optional[Callable] = None):
+        super().__init__(slots)
+        self.cfg = cfg.replace(decode_per_slot=True)
+        self.params = params
+        self.device = params["final_norm"].device
+        self.cache_len = cache_len
+        self.sampler = sampler or greedy
+        self.cache = model_lib.init_cache(self.cfg, slots, cache_len,
+                                          device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        # per-lane scratch (host-side; tiny)
+        self._next_tok = np.zeros((slots,), np.int32)
+        self._pos = np.zeros((slots,), np.int32)
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        return self.sampler(logits, self.generator).cpu().numpy() \
+            .astype(np.int32)
+
+    # ---------------- scheduler hooks ------------------------------ #
+    def _begin(self, req: Request, slot: int) -> RequestState:
+        t0 = time.perf_counter()
+        logits, one_cache = model_lib.prefill(
+            self.cfg, self.params, {"tokens": [list(req.prompt)]})
+        first = int(self._sample(logits)[0])
+        kvcache.write_slot(self.cache, one_cache, slot)
+        st = RequestState(req, slot, pos=len(req.prompt),
+                          generated=[first],
+                          prefill_s=time.perf_counter() - t0)
+        self._next_tok[slot] = first
+        self._pos[slot] = st.pos
+        return st
+
+    def _done(self, st: RequestState) -> bool:
+        return len(st.generated) >= st.request.max_new_tokens or \
+            (bool(st.generated) and
+             st.generated[-1] == st.request.eos_id)
+
+    def _release(self, st: RequestState) -> None:
+        kvcache.clear_slot(self.cache, st.slot)
+
+    def _step_active(self) -> int:
+        """ONE batched decode for all active lanes, each at its own
+        position. Returns the number of tokens emitted."""
+        logits, self.cache = model_lib.decode_step(
+            self.cfg, self.params, self.cache, self._next_tok[:, None],
+            self._pos)
+        nxt = self._sample(logits)
+        emitted = 0
+        for slot, st in list(self.active.items()):
+            st.generated.append(int(nxt[slot]))
+            st.pos += 1
+            self._next_tok[slot] = int(nxt[slot])
+            self._pos[slot] = st.pos
+            emitted += 1
+            self._maybe_finish(st)
+        return emitted

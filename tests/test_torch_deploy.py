@@ -436,21 +436,22 @@ def test_rate_warnings_fire_exactly_once():
 
 
 def test_lm_tenants_and_closed_deployments_refuse(weights):
-    """LM tenants are not ported yet: deploying one, submit_tokens and
-    generated_tokens raise ``NotImplementedError``; a closed deployment
-    refuses every verb."""
+    """An LM tenant of a family ``compile_lm`` cannot map raises
+    ``NotImplementedError`` at deploy (LM tenants themselves are tested
+    in ``test_torch_lm.py``); the LM verbs refuse a sensor tenant; a
+    closed deployment refuses every verb."""
     _, _, tspec, tparams = weights["a"]
 
     class LMConfig:
         family = "qwen"
         num_layers = 2
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="dense transformer"):
         deploy(AppSpec("lm", LMConfig()), device="cpu")
     d = deploy(AppSpec("a", tspec, params=tparams), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="sensor tenant"):
         d.submit_tokens("a", (1, 2, 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="sensor tenant"):
         d.generated_tokens("a")
     with pytest.raises(ValueError, match="unknown app"):
         d.submit("nope", _x(0, 1))

@@ -502,3 +502,57 @@ def test_gpu_tuned_heterogeneous_deployment(cuda):
             assert torch.equal(got, chip.stream(x, use_kernel=False))
         else:
             assert counts["crossbar_mvm"] == 3
+
+
+# the LM's block linears at the qwen1.5-0.5B width, exact encoding
+LM_LINEAR_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", [(128, 64), (256, 128)])
+@pytest.mark.parametrize("d_in,d_out", LM_LINEAR_SHAPES)
+@pytest.mark.parametrize("M", [4, 32])
+def test_gpu_crossbar_kernel_at_the_lm_shapes(cuda, geom, d_in, d_out, M):
+    """K1 in partials mode on a full-width qwen linear programmed as
+    ``compile_lm`` programs it (``quantize=False``), at a decode step's
+    4 rows and a prefill's 32, on both systems' geometries (a 128-column
+    tile spans two of the kernel's 64-column block tiles)."""
+    from repro_torch.core.neural_core import CoreGeometry
+    gen = torch.Generator().manual_seed(d_in + d_out + M)
+    w = (torch.randn((d_in, d_out), generator=gen) / d_in ** 0.5).to(cuda)
+    p = tcl.program_layer(w, geom=CoreGeometry(*geom), quantize=False)
+    x = (torch.rand((M, d_in), generator=gen) * 2 - 1).to(cuda)
+    xt = tcl.tile_inputs(p, x)
+    out = ops.crossbar_mvm(xt, p.gp, p.gn, p.scale, partials=True)
+    plain = tref.crossbar_mvm_partials_ref(xt, p.gp, p.gn, p.scale)
+    assert out.shape == (M, d_in // geom[0], d_out)
+    assert _rel(out.cpu(), plain.cpu()) <= 1e-5   # another sum order
+    # the partials sum to x @ w (the exact encoding recovers w)
+    assert _rel(out.sum(1).cpu(), (x.double() @ w.double()).cpu()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["memristor", "digital"])
+def test_gpu_full_width_compile_lm_prefill_matches_dense(cuda, system):
+    """The full-width qwen1.5-0.5B: ``compile_lm``'s prefill, every block
+    linear through K1 (7 × 24 launches), against the dense forward on
+    the card (IEEE f32): logits and cache within rel ≤ 1e-5."""
+    from repro_torch.configs import qwen1p5_0p5b
+    from repro_torch.lm import TransformerParams, compile_lm
+    from repro_torch.models import model as model_lib
+    cfg = qwen1p5_0p5b.CONFIG.replace(compute_dtype="float32",
+                                      decode_per_slot=True)
+    params = model_lib.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32),
+                         generator=torch.Generator().manual_seed(5)).to(cuda)
+    want, want_cache = model_lib.prefill(cfg, params, {"tokens": toks})
+    clm = compile_lm(TransformerParams(cfg, params), system=system,
+                     device=cuda)
+    ops.reset_launch_counts()
+    got, cache = clm.prefill(toks)
+    assert ops.launch_counts() == {"crossbar_mvm": 7 * 24,
+                                   "int8_matmul_fused": 0,
+                                   "int8_matmul_raw": 0}
+    assert _rel(got.cpu(), want.cpu()) <= 1e-5
+    for k in want_cache:
+        assert _rel(cache[k].cpu(), want_cache[k].cpu()) <= 1e-5

@@ -317,3 +317,47 @@ def test_smoke_refuses_without_a_card_or_the_repository(tmp_path):
                               cwd=script.parent)
         assert proc.returncode != 0
         assert proc.stdout == ""
+
+
+def test_smoke_lm_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
+    """Phase 11 on the CPU at a small width (2 layers of the reduced
+    qwen): 7 × 2 crossbar launches a forward, the served tokens equal
+    the dense Engine's, the reduced deploy duo, and the times'
+    bookkeeping (one line per serving engine, forward and LM shape)."""
+    from repro_torch.configs import qwen1p5_0p5b
+    from repro_torch.kernels import ref
+    from repro_torch.core import crossbar_layer as tcl
+    smoke, ops = cpu_smoke
+    monkeypatch.setattr(smoke, "SERVE_DRAINS", 1)
+    monkeypatch.setattr(smoke, "_time_ms",
+                        lambda torch, fn, iters=20, warmup=3: 2.0)
+    monkeypatch.setattr(smoke, "_device_ms",
+                        lambda torch, fn, iters=20, warmup=3: 1.0)
+    monkeypatch.setattr(smoke, "_busy", lambda torch, fn, ms, n=5: {})
+    cfg = qwen1p5_0p5b.reduced().replace(num_layers=2)
+    launches = smoke.phase_lm(torch, ops, ref, tcl, torch.device("cpu"),
+                              "cpu", cfg=cfg)
+    out = capsys.readouterr().out
+    line = _phase_lines(out)["lm"]
+    for system in ("memristor", "digital"):
+        res = line["systems"][system]
+        assert res["launches_per_forward"]["crossbar_mvm"] == 14
+        assert all(r <= 1e-6 for r in res["rel"].values())
+        assert len(res["residual_rel"]) == 2
+        serving = res["serving"]
+        assert serving["tokens_equal_engine"] and \
+            serving["first_divergence"] is None
+        assert serving["items"] == serving["lm_tokens_counter"] == 96
+    assert line["systems"]["digital"]["geometry"] == "256x128"
+    duo = line["deploy_duo"]
+    assert duo["tokens_equal_engine"] and set(duo["report_rows"]) == \
+        {"sensor", "lm"}
+    assert duo["roll_up"]["items"] == 5 * 6 + 3 + 4 + 5
+    # the path: 2 × (prefill + decode + the served drain), then the duo
+    assert launches["crossbar_mvm"] == sum(
+        2 * 14 + line["systems"][s]["serving"]["launches"]["crossbar_mvm"]
+        for s in ("memristor", "digital")) + \
+        duo["launches"]["crossbar_mvm"]
+    assert out.count('"metric": "lm_serving"') == 2      # memristor only
+    assert out.count('"metric": "lm_forward"') == 8
+    assert out.count('"lm_shape"') == 2 * 3 * 2
