@@ -111,9 +111,34 @@ Phases, each of which ends the run with a non-zero exit on failure:
      the folded weights and the bound; (d) ``deploy()`` of the deep
      sensor app and the ``reduced_serving()`` LM on 2 logical chips,
      tokens equal to the ``Engine``'s, the LM's report row priced.
+ 12. train: ex-situ training (``repro_torch.optim.qat``,
+     ``repro_torch.launch.train``): (a) the deep app QAT-trained on the
+     card (8-bit weights and activations, threshold, 300 steps on
+     ``mnist_like(seed=0, n=2048)``), compiled on memristor 128×64 and
+     digital 256×128, the test set (``mnist_like(seed=1, n=512)``)
+     streamed through K1 and K2: predictions equal to the einsum
+     path's outside the near-zero band, deployed accuracy within 3
+     points of the QAT forward; the same net at 12 bits through K3's
+     byte planes, equal to the einsum path to the bit; (b) Fig. 12 at
+     full width (bits 32, 8, 6, 4 × sigmoid, threshold, 250 steps
+     each; the reference benchmark's rule printed, not gated) and a
+     variation-aware net against the clean one on phase 5's noisy
+     chip; (c) the full-width qwen1.5-0.5B trained 6 steps (global
+     batch 8 × 128 tokens, 2 microbatches, AdamW, bf16 compute,
+     remat "full", checkpoints every 3 steps in a temporary
+     directory), the same job stopped after its step-3 checkpoint and
+     resumed to 6, equal to the straight run at rel ≤ 1e-6 (with
+     deterministic algorithms only if it is not), the loss falling,
+     each step's loss and wall, two further steps' busy time and
+     kernels, peak memory, each checkpoint save's and restore's
+     seconds and bytes; (d) the step-6 checkpoint restored into the
+     port's tree and served through ``compile_lm`` (memristor 128×64):
+     a 2 × 32 prefill and a decode within rel 1e-5 of the dense f32
+     forward, 168 K1 launches a forward, an ``LMMember`` serving 6
+     prompts × 16 tokens equal to the dense ``Engine``'s.
 
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–11 (phase 9: what the ranks report; a
+(phases 2–3) and in phases 5–12 (phase 9: what the ranks report; a
 killed rank reports nothing).
 
 It prints the card's name and power limit first, one JSON line per
@@ -127,6 +152,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -195,6 +221,18 @@ LM_NEW = 16             # tokens generated a served request
 LM_TOL = 1e-5           # mapped vs dense on the card: K1 runs 3xTF32
 LM_SHAPES = ("wq", "w1", "w2")         # 1024->1024, 1024->2816, 2816->1024
 LM_SHAPE_ROWS = (4, 32)                # a decode step's lanes, a prefill's
+QAT_TRAIN_N = 2048      # phase 12: mnist_like(seed=0) training images
+QAT_TEST_N = 512        # mnist_like(seed=1) test images
+QAT_STEPS = 300         # the reference example's QAT run (batch 128, lr 0.05)
+QAT_DROP = 0.03         # deployed may lose ≤ 3 points (Fig. 12, threshold)
+FIG12_STEPS = 250       # benchmarks/fig12_bitwidth.py's steps
+FIG12_BITS = (32, 8, 6, 4)
+FIG12_ACTS = ("sigmoid", "threshold")
+TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--steps", "6", "--global-batch", "8",
+              "--seq-len", "128", "--ckpt-every", "3"]
+TRAIN_RESUME_AT = 3     # the interrupted leg stops after its step-3 save
+TRAIN_TOL = 1e-6        # resumed vs straight: the reference's own bound
+TRAIN_PROFILED = 2      # train steps profiled for busy time and kernels
 
 
 class SmokeFailure(Exception):
@@ -1827,6 +1865,120 @@ def _first_divergence(got, want):
     return None
 
 
+def _lm_tenant(torch, on_path, cfg, params, system, dev, toks, step, pos,
+               dense, prompts, oracle):
+    """One LM tenant's checks on ``params``: (a) ``compile_lm`` programs
+    the 7 × num_layers linears and routes nothing; (b) a prefill of
+    ``toks`` and a per-slot decode against the dense forward's
+    ``dense`` = (logits, cache, step logits, step cache) within
+    ``LM_TOL``, 7 × num_layers crossbar launches each, and each layer's
+    residual stream; (c) an ``LMMember`` serving ``prompts`` through
+    ``MultiAppRouter`` token for token against ``oracle`` (the dense
+    ``Engine``'s tokens). Returns (result, the compiled LM, the drained
+    router, a factory of fresh routers)."""
+    from repro_torch import obs
+    from repro_torch.deploy import MultiAppRouter
+    from repro_torch.lm import LMMember, TransformerParams, compile_lm
+    from repro_torch.lm import compile as lmc
+    from repro_torch.lm import lm_request, tokens_from_state
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer as tf
+
+    d_logits, d_cache, d_step, d_next = dense
+    res = {}
+    # (a) compile: program the 7 × num_layers linears, route nothing
+    torch.cuda.synchronize()
+    t0 = t_sys = time.perf_counter()
+    clm, per = on_path(compile_lm, TransformerParams(cfg, params),
+                       system=system, device=dev)
+    torch.cuda.synchronize()
+    res["compile_s"] = time.perf_counter() - t0
+    res["geometry"] = f"{clm.geom.rows}x{clm.geom.cols}"
+    res["cuda_memory_bytes"] = torch.cuda.memory_allocated(dev) \
+        if dev.type == "cuda" else None
+    _require("chip" not in clm.__dict__ and set(per.values()) == {0},
+             f"compile_lm {system}: routed or launched {per}")
+    per_forward = {k: 7 * cfg.num_layers if k == "crossbar_mvm" else 0
+                   for k in per}
+    tile_bytes = sum(4 * (pl.tiles.gp.numel() + pl.tiles.gn.numel())
+                     for plans in clm.plans for pl in plans.values())
+    res["tile_bytes"] = tile_bytes
+
+    # (b) prefill and per-slot decode against the dense forward
+    (m_logits, m_cache), per = on_path(clm.prefill, toks)
+    _require(per == per_forward, f"prefill {system} launches {per}")
+    (m_step, m_next), per = on_path(clm.decode, m_cache, step, pos)
+    _require(per == per_forward, f"decode {system} launches {per}")
+    rels = {"prefill_logits": _rel(m_logits, d_logits),
+            "prefill_cache": max(_rel(m_cache[k], d_cache[k])
+                                 for k in d_cache),
+            "decode_logits": _rel(m_step, d_step),
+            "decode_cache": max(_rel(m_next[k], d_next[k])
+                                for k in d_next)}
+    res["rel"] = rels
+    res["launches_per_forward"] = per
+    # each layer's residual stream, both paths from the same
+    # embedding (check launches: not the path's)
+    h_d = model_lib._embed_in(cfg, params, {"tokens": toks},
+                              torch.float32)
+    h_m = h_d
+    positions = model_lib.positions_for(cfg, {}, 2, LM_PROMPT,
+                                        "prefill", dev)
+    windows = tf._layer_windows(cfg)
+    res["residual_rel"] = []
+    for layer in range(cfg.num_layers):
+        p_l = tf.layer_slice(params["stack"], layer)
+        kw = dict(positions=positions, mode="prefill", cache=None,
+                  window=windows[layer])
+        h_d = tf._block_apply(p_l, cfg, h_d, **kw)[0]
+        h_m = tf._block_apply(
+            p_l, cfg, h_m, **kw,
+            project=lmc._projector(clm.plans[layer], True),
+            mlp_fn=lmc._mlp_fn(clm.plans[layer], cfg, True))[0]
+        res["residual_rel"].append(_rel(h_m, h_d))
+    for key, r in rels.items():
+        _require(r <= LM_TOL, f"{system} {key}: rel {r:.3g} "
+                              f"(residual rel by layer "
+                              f"{res['residual_rel']})")
+
+    t_parity = time.perf_counter() - t_sys
+
+    # (c) an LMMember served through the multi-app router
+    def make_router():
+        member = LMMember(clm, lanes=LM_LANES, cache_len=LM_CACHE)
+        return MultiAppRouter({"lm": member}, lanes={"lm": LM_LANES})
+
+    tel = obs.configure(trace=False)
+    try:
+        router, per = on_path(_lm_drain, make_router(), prompts,
+                              lambda uid, p: lm_request(
+                                  p, LM_NEW, uid=uid, key="lm"))
+        counted = tel.metrics.snapshot()["counters"].get("lm.tokens")
+    finally:
+        obs.disable()
+    got = {st.request.uid: tokens_from_state(st)
+           for st in router.finished}
+    stats = router.stats()
+    res["serving"] = {
+        "requests": len(got), "steps": router.steps, "launches": per,
+        "items": stats.apps["lm"].items, "lm_tokens_counter": counted,
+        "tokens_equal_engine": got == oracle,
+        "first_divergence": _first_divergence(got, oracle)}
+    _require(got == oracle, f"{system}: served tokens differ from the "
+                            f"dense Engine: "
+                            f"{res['serving']['first_divergence']}")
+    _require(stats.apps["lm"].items == len(prompts) * LM_NEW ==
+             counted, f"{system}: items {stats.apps['lm'].items}, "
+                      f"lm.tokens {counted}")
+    _require(per["crossbar_mvm"] == 7 * cfg.num_layers *
+             (router.steps + len(prompts)),
+             f"{system} serving launches {per} in {router.steps} "
+             f"steps")
+    t_serve = time.perf_counter() - t_sys - t_parity
+    res["seconds"] = (t_parity, t_serve)
+    return res, clm, router, make_router
+
+
 def phase_lm(torch, ops, ref, tcl, dev, card, cfg=None, reduced=None):
     """(a) ``compile_lm`` of the full-width qwen1.5-0.5B on both systems,
     (b) prefill and per-slot decode against the dense forward, layer by
@@ -1838,15 +1990,9 @@ def phase_lm(torch, ops, ref, tcl, dev, card, cfg=None, reduced=None):
     and ``reduced_serving()`` (the CPU rehearsal passes smaller ones)."""
     import numpy as np
 
-    from repro_torch import obs
     from repro_torch.configs import qwen1p5_0p5b
-    from repro_torch.deploy import (AppSpec, DeploymentSpec, MultiAppRouter,
-                                    deploy)
-    from repro_torch.lm import LMMember, TransformerParams, compile_lm
-    from repro_torch.lm import compile as lmc
-    from repro_torch.lm import lm_request, tokens_from_state
+    from repro_torch.deploy import AppSpec, DeploymentSpec, deploy
     from repro_torch.models import model as model_lib
-    from repro_torch.models import transformer as tf
     from repro_torch.serving import Engine, Request
 
     t_phase = time.perf_counter()
@@ -1855,8 +2001,6 @@ def phase_lm(torch, ops, ref, tcl, dev, card, cfg=None, reduced=None):
     reduced = reduced or qwen1p5_0p5b.reduced_serving()
     path = {k: 0 for k in ops.launch_counts()}
     on_path = _on_path(ops, path)
-    per_forward = {k: 7 * cfg.num_layers if k == "crossbar_mvm" else 0
-                   for k in path}
     gen = torch.Generator().manual_seed(21)
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, 0, device=dev)
@@ -1882,94 +2026,12 @@ def phase_lm(torch, ops, ref, tcl, dev, card, cfg=None, reduced=None):
            "init_s": init_s, "systems": {}}
 
     for system in ("memristor", "digital"):
-        res = {}
-        # (a) compile: program the 7 × num_layers linears, route nothing
-        torch.cuda.synchronize()
-        t0 = t_sys = time.perf_counter()
-        clm, per = on_path(compile_lm, TransformerParams(cfg, params),
-                           system=system, device=dev)
-        torch.cuda.synchronize()
-        res["compile_s"] = time.perf_counter() - t0
-        res["geometry"] = f"{clm.geom.rows}x{clm.geom.cols}"
-        res["cuda_memory_bytes"] = torch.cuda.memory_allocated(dev) \
-            if dev.type == "cuda" else None
-        _require("chip" not in clm.__dict__ and set(per.values()) == {0},
-                 f"compile_lm {system}: routed or launched {per}")
-        tile_bytes = sum(4 * (pl.tiles.gp.numel() + pl.tiles.gn.numel())
-                         for plans in clm.plans for pl in plans.values())
-        res["tile_bytes"] = tile_bytes
-
-        # (b) prefill and per-slot decode against the dense forward
-        (m_logits, m_cache), per = on_path(clm.prefill, toks)
-        _require(per == per_forward, f"prefill {system} launches {per}")
-        (m_step, m_next), per = on_path(clm.decode, m_cache, step, pos)
-        _require(per == per_forward, f"decode {system} launches {per}")
-        rels = {"prefill_logits": _rel(m_logits, d_logits),
-                "prefill_cache": max(_rel(m_cache[k], d_cache[k])
-                                     for k in d_cache),
-                "decode_logits": _rel(m_step, d_step),
-                "decode_cache": max(_rel(m_next[k], d_next[k])
-                                    for k in d_next)}
-        res["rel"] = rels
-        res["launches_per_forward"] = per
-        # each layer's residual stream, both paths from the same
-        # embedding (check launches: not the path's)
-        h_d = model_lib._embed_in(cfg, params, {"tokens": toks},
-                                  torch.float32)
-        h_m = h_d
-        positions = model_lib.positions_for(cfg, {}, 2, LM_PROMPT,
-                                            "prefill", dev)
-        windows = tf._layer_windows(cfg)
-        res["residual_rel"] = []
-        for layer in range(cfg.num_layers):
-            p_l = tf.layer_slice(params["stack"], layer)
-            kw = dict(positions=positions, mode="prefill", cache=None,
-                      window=windows[layer])
-            h_d = tf._block_apply(p_l, cfg, h_d, **kw)[0]
-            h_m = tf._block_apply(
-                p_l, cfg, h_m, **kw,
-                project=lmc._projector(clm.plans[layer], True),
-                mlp_fn=lmc._mlp_fn(clm.plans[layer], cfg, True))[0]
-            res["residual_rel"].append(_rel(h_m, h_d))
-        for key, r in rels.items():
-            _require(r <= LM_TOL, f"{system} {key}: rel {r:.3g} "
-                                  f"(residual rel by layer "
-                                  f"{res['residual_rel']})")
-
-        t_parity = time.perf_counter() - t_sys
-
-        # (c) an LMMember served through the multi-app router
-        def make_router():
-            member = LMMember(clm, lanes=LM_LANES, cache_len=LM_CACHE)
-            return MultiAppRouter({"lm": member}, lanes={"lm": LM_LANES})
-
-        tel = obs.configure(trace=False)
-        try:
-            router, per = on_path(_lm_drain, make_router(), prompts,
-                                  lambda uid, p: lm_request(
-                                      p, LM_NEW, uid=uid, key="lm"))
-            counted = tel.metrics.snapshot()["counters"].get("lm.tokens")
-        finally:
-            obs.disable()
-        got = {st.request.uid: tokens_from_state(st)
-               for st in router.finished}
-        stats = router.stats()
-        res["serving"] = {
-            "requests": len(got), "steps": router.steps, "launches": per,
-            "items": stats.apps["lm"].items, "lm_tokens_counter": counted,
-            "tokens_equal_engine": got == oracle,
-            "first_divergence": _first_divergence(got, oracle)}
-        _require(got == oracle, f"{system}: served tokens differ from the "
-                                f"dense Engine: "
-                                f"{res['serving']['first_divergence']}")
-        _require(stats.apps["lm"].items == len(LM_PROMPTS) * LM_NEW ==
-                 counted, f"{system}: items {stats.apps['lm'].items}, "
-                          f"lm.tokens {counted}")
-        _require(per["crossbar_mvm"] == 7 * cfg.num_layers *
-                 (router.steps + len(LM_PROMPTS)),
-                 f"{system} serving launches {per} in {router.steps} "
-                 f"steps")
-        t_serve = time.perf_counter() - t_sys - t_parity
+        t_sys = time.perf_counter()
+        res, clm, router, make_router = _lm_tenant(
+            torch, on_path, cfg, params, system, dev, toks, step, pos,
+            (d_logits, d_cache, d_step, d_next), prompts, oracle)
+        t_parity, t_serve = res.pop("seconds")
+        tile_bytes = res["tile_bytes"]
         # the serving rates once (memristor): the digital tenant runs the
         # same glue on other tiles, whose K1 times the forward lines show
         phase_lm_times(torch, ops, ref, tcl, cfg, params, clm,
@@ -1985,7 +2047,7 @@ def phase_lm(torch, ops, ref, tcl, dev, card, cfg=None, reduced=None):
                           "times": time.perf_counter() - t_sys - t_parity
                           - t_serve}
         out["systems"][system] = res
-        del clm, router, m_cache, m_next
+        del clm, router
         torch.cuda.empty_cache()
 
     # (d) deploy() of the reference selftest's duo at the reduced width
@@ -2155,6 +2217,352 @@ def phase_lm_times(torch, ops, ref, tcl, cfg, params, clm, make_router,
 
 
 # --------------------------------------------------------------------- #
+# phase 12: ex-situ training
+# --------------------------------------------------------------------- #
+def _argmax_accuracy(torch, logits, y) -> float:
+    return float((logits.argmax(-1) == y).to(torch.float32).mean())
+
+
+def phase_train_qat(torch, ops, tcompile, tq, tcl, chip_mod, var, dev,
+                    on_path):
+    """(a) the paper's §III.D pipeline: QAT-train the deep app (8-bit
+    weights and activations, threshold), compile it on memristor 128×64
+    and digital 256×128 and stream the test set through the kernels,
+    against the einsum path; a 12-bit net through K3's byte planes; (b)
+    Fig. 12 at full width and a variation-aware pair on phase 5's noisy
+    memristor chip."""
+    from repro_torch.data import mnist_like
+    from repro_torch.optim import qat
+
+    xtr, ytr = mnist_like(seed=0, n=QAT_TRAIN_N)
+    xte, yte = mnist_like(seed=1, n=QAT_TEST_N)
+    x, y = xte.to(dev), yte.to(dev)
+
+    def train(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = qat.train_mlp(xtr, ytr, DEEP, device=dev, **kw)
+        torch.cuda.synchronize()
+        return t, time.perf_counter() - t0
+
+    tr8, train_s = train(activation="threshold", weight_bits=8, act_bits=8,
+                         steps=QAT_STEPS)
+    acc_qat = qat.accuracy(tr8["params"], tr8["spec"], x, y, mode="qat")
+    out = {"train": {"steps": QAT_STEPS, "images": QAT_TRAIN_N,
+                     "seconds": train_s, "qat_accuracy": acc_qat},
+           "deployed": {}}
+    for system in ("memristor", "digital"):
+        chip = chip_mod.compile_chip(tr8["spec"], params=tr8["params"],
+                                     system=system, device=dev)
+        logits, per = on_path(chip.stream, x)
+        plain = chip.stream(x, use_kernel=False)
+        flips, clear = _layerwise_check(torch, tcompile, tq, chip, x,
+                                        system)
+        pk, pp = logits.argmax(-1), plain.argmax(-1)
+        _require(torch.equal(pk[clear], pp[clear]),
+                 f"trained deep app, {system}: kernel predictions differ "
+                 f"from the einsum path's outside the near-zero band")
+        acc_k = _argmax_accuracy(torch, logits, y)
+        acc_e = _argmax_accuracy(torch, plain, y)
+        acc_api, _ = on_path(qat.accuracy, tr8["params"], tr8["spec"], x,
+                             y, mode=system, chip=chip)
+        _require(acc_api == acc_k, f"{system}: accuracy(chip=) {acc_api} "
+                                   f"vs the stream's {acc_k}")
+        _require(abs(acc_k - acc_qat) <= QAT_DROP,
+                 f"{system}: deployed accuracy {acc_k:.4f} vs QAT forward "
+                 f"{acc_qat:.4f}")
+        out["deployed"][system] = {
+            "geometry": f"{chip.geom.rows}x{chip.geom.cols}",
+            "kernel_accuracy": acc_k, "einsum_accuracy": acc_e,
+            "qat_minus_kernel": acc_qat - acc_k,
+            "launches_per_batch": per, "threshold_flips_in_band": flips,
+            "rows_compared": int(clear.sum())}
+
+    # the same net at 12 bits on the digital system: K3's byte planes
+    tr12, train12_s = train(activation="threshold", weight_bits=12,
+                            act_bits=12, steps=QAT_STEPS)
+    chip12 = chip_mod.compile_chip(tr12["spec"], params=tr12["params"],
+                                   system="digital", weight_bits=12,
+                                   device=dev)
+    out12, per12 = on_path(chip12.stream, x)
+    planes = (-(-12 // 8)) * chip12.plan[0].tiles.planes.shape[0]
+    _require(per12["int8_matmul_raw"] == planes * len(chip12.plan) and
+             per12["int8_matmul_fused"] == per12["crossbar_mvm"] == 0,
+             f"12-bit trained stream launches {per12}")
+    _require(torch.equal(out12, chip12.stream(x, use_kernel=False)),
+             "12-bit trained stream differs from the einsum path")
+    out["wide_12_bit"] = {
+        "seconds": train12_s, "launches_per_batch": per12,
+        "equal_to_einsum_path": True,
+        "qat_accuracy": qat.accuracy(tr12["params"], tr12["spec"], x, y,
+                                     mode="qat", weight_bits=12,
+                                     act_bits=12),
+        "kernel_accuracy": _argmax_accuracy(torch, out12, y)}
+
+    # (b) Fig. 12 at full width: error against bit width and activation
+    acc, fig = {}, {}
+    t0 = time.perf_counter()
+    for act in FIG12_ACTS:
+        for bits in FIG12_BITS:
+            t, _ = train(activation=act, weight_bits=bits, act_bits=bits,
+                         steps=FIG12_STEPS)
+            mode = "float" if bits >= 32 else "qat"
+            acc[act, bits] = qat.accuracy(t["params"], t["spec"], x, y,
+                                          mode=mode, weight_bits=bits,
+                                          act_bits=bits)
+            fig.setdefault(act, {})[str(bits)] = 1.0 - acc[act, bits]
+    base = acc["sigmoid", 32]
+    d_sig = base - acc["sigmoid", 8]
+    d_th = base - acc["threshold", 8]
+    out["fig12"] = {"steps": FIG12_STEPS, "error": fig,
+                    "delta_sigmoid_8b": d_sig, "delta_threshold_8b": d_th,
+                    "reference_rule_d_sig_lt_0.03_d_th_lt_0.08":
+                    bool(d_sig < 0.03 and d_th < 0.08),
+                    "seconds": time.perf_counter() - t0}
+
+    # a variation-aware net against the clean one on phase 5's noisy chip
+    hard, _ = train(activation="threshold", weight_bits=8, act_bits=8,
+                    steps=QAT_STEPS,
+                    noise=var.NoiseModel(program_sigma=0.1, seed=0))
+    pair = {}
+    for name, t in (("clean", tr8), ("variation_aware", hard)):
+        chip = chip_mod.compile_chip(t["spec"], params=t["params"],
+                                     noise=var.NoiseModel(**NOISE_KW),
+                                     device=dev)
+        logits, per = on_path(chip.stream, x)
+        pair[name] = {"qat_accuracy": qat.accuracy(
+            t["params"], t["spec"], x, y, mode="qat"),
+            "noisy_chip_accuracy": _argmax_accuracy(torch, logits, y),
+            "launches_per_batch": per}
+    out["variation_aware_pair"] = pair
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _tree_rel(torch, got, want):
+    """(max over leaves of rel, every leaf equal to the bit)."""
+    from repro_torch.pytree import leaves
+    rel, equal = 0.0, True
+    for a, b in zip(leaves(got), leaves(want)):
+        rel = max(rel, _rel(a.to(torch.float64), b.to(torch.float64)))
+        equal = equal and bool(torch.equal(a, b))
+    return rel, equal
+
+
+def _train_legs(torch, launch_train, train_loop, args, root):
+    """The straight run of ``args`` through ``launch_train.main``, then
+    the same job in two legs: ``setup`` + ``train_loop.run`` stopped
+    after its step-``TRAIN_RESUME_AT`` checkpoint (an interruption),
+    and ``main`` again, which resumes from it. Returns the two runs'
+    outputs, the straight run's peak CUDA memory, both runs' per-step
+    log records, the legs' checkpoint directory and the job's config,
+    train step and pipeline."""
+    import shutil
+
+    dir_a, dir_b = os.path.join(root, "straight"), os.path.join(root, "legs")
+    log_a, log_b = dir_a + ".jsonl", dir_b + ".jsonl"
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    straight = launch_train.main(args + ["--ckpt-dir", dir_a, "--log",
+                                         log_a])
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    shutil.rmtree(dir_a)              # its state stays in memory
+    leg = launch_train.setup(launch_train.parse_args(
+        args + ["--ckpt-dir", dir_b]))
+    train_loop.run(dataclasses.replace(leg["loop"],
+                                       total_steps=TRAIN_RESUME_AT),
+                   train_step=leg["train_step"], params=leg["params"],
+                   opt_state=leg["opt_state"], pipeline=leg["pipeline"],
+                   log_path=log_b)
+    kit = {k: leg[k] for k in ("cfg", "train_step", "pipeline")}
+    del leg
+    if cuda:
+        torch.cuda.empty_cache()
+    resumed = launch_train.main(args + ["--ckpt-dir", dir_b, "--log",
+                                        log_b])
+    with open(log_a) as f:
+        recs = [json.loads(line) for line in f]
+    with open(log_b) as f:
+        recs_b = [json.loads(line) for line in f]
+    return straight, resumed, peak, recs, recs_b, dir_b, kit
+
+
+def phase_train(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
+                card, train_args=None):
+    """Ex-situ training: (a)–(b) ``phase_train_qat``; (c) the full-width
+    qwen1.5-0.5B trained through ``repro_torch.launch.train`` (6 steps,
+    AdamW, bf16 compute, remat "full", checkpoints every 3 steps), the
+    same job interrupted after step 3 and resumed, equal to the straight
+    run at rel ≤ 1e-6, each step's loss and wall, two steps' busy time
+    and kernels, peak memory, each checkpoint save's and restore's
+    seconds and bytes; (d) the step-6 checkpoint restored and served
+    through ``compile_lm`` (memristor 128×64): prefill and decode
+    against the dense forward, an ``LMMember`` against the dense
+    ``Engine``. ``train_args`` defaults to ``TRAIN_ARGS`` (the CPU
+    rehearsal passes a reduced run)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import Engine, Request
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import train_loop
+
+    t_phase = time.perf_counter()
+    path = {k: 0 for k in ops.launch_counts()}
+    on_path = _on_path(ops, path)
+    out = {"qat": phase_train_qat(torch, ops, tcompile, tq, tcl, chip_mod,
+                                  var, dev, on_path)}
+    _line({"phase": "train_qat", **out["qat"], "card": card})
+
+    # (c) the LM trained, interrupted and resumed
+    args = list(train_args or TRAIN_ARGS) + ["--log-every", "1"]
+    io = []
+    real_save, real_restore = ckpt_lib.save, ckpt_lib.restore
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        published = ckpt_lib.published_steps(ckpt_dir)
+        where = real_save(ckpt_dir, step, tree, **kw)
+        if step not in published:
+            io.append({"op": "save", "step": step,
+                       "seconds": time.perf_counter() - t0,
+                       "bytes": _dir_bytes(where)})
+        return where
+
+    def timed_restore(ckpt_dir, step, tree_like):
+        t0 = time.perf_counter()
+        got = real_restore(ckpt_dir, step, tree_like)
+        torch.cuda.synchronize()
+        io.append({"op": "restore", "step": step,
+                   "seconds": time.perf_counter() - t0,
+                   "bytes": _dir_bytes(os.path.join(
+                       ckpt_dir, f"step_{step:08d}"))})
+        return got
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt_lib.save, ckpt_lib.restore = timed_save, timed_restore
+    try:
+        t0 = time.perf_counter()
+        straight, resumed, peak, recs, recs_b, dir_b, kit = _train_legs(
+            torch, launch_train, train_loop, args, root)
+        legs_s = time.perf_counter() - t0
+        rel, equal = _tree_rel(torch, (resumed["params"],
+                                       resumed["opt_state"]),
+                               (straight["params"], straight["opt_state"]))
+        deterministic = False
+        if rel > TRAIN_TOL:
+            # the straight and resumed runs differ: run both again with
+            # PyTorch's deterministic algorithms (atomics off)
+            env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+            torch.use_deterministic_algorithms(True)
+            deterministic = True
+            del straight, resumed
+            try:
+                straight, resumed, peak, recs, recs_b, dir_b, kit = \
+                    _train_legs(torch, launch_train, train_loop, args,
+                                os.path.join(root, "deterministic"))
+            finally:
+                torch.use_deterministic_algorithms(False)
+                if env is None:
+                    del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+                else:
+                    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+            rel, equal = _tree_rel(
+                torch, (resumed["params"], resumed["opt_state"]),
+                (straight["params"], straight["opt_state"]))
+        _require(resumed["resumed_from"] == TRAIN_RESUME_AT,
+                 f"resumed from {resumed['resumed_from']}")
+        _require(rel <= TRAIN_TOL, f"resumed run vs straight run: rel "
+                                   f"{rel:.3g} (deterministic "
+                                   f"algorithms: {deterministic})")
+        losses = [r["loss"] for r in recs]
+        _require(all(map(math.isfinite, losses)) and
+                 losses[-1] < losses[0],
+                 f"the LM's loss did not fall: {losses}")
+
+        # two more steps at the run's shapes, for busy time and kernels
+        cfg, step_fn = kit["cfg"], kit["train_step"]
+        total = launch_train.parse_args(args).steps
+        state = (resumed["params"], resumed["opt_state"])
+        profiled = []
+        for i in range(TRAIN_PROFILED):
+            batch = kit["pipeline"].batch(total + i)
+
+            def one(batch=batch):
+                return step_fn(state[0], state[1], batch)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            profiled.append({"wall_ms": wall_ms,
+                             **_busy(torch, one, wall_ms, n=1)})
+
+        # (d) the step-6 checkpoint restored into the port's tree, served
+        (params, opt_state), manifest = ckpt_lib.restore(dir_b, total,
+                                                         state)
+        rrel, requal = _tree_rel(torch, (params, opt_state), state)
+        _require(requal, f"restored checkpoint differs: rel {rrel:.3g}")
+    finally:
+        ckpt_lib.save, ckpt_lib.restore = real_save, real_restore
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    del straight, resumed, state, opt_state
+    out["lm_train"] = {
+        "config": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "params": cfg.param_count(),
+        "remat": cfg.remat, "compute_dtype": cfg.compute_dtype,
+        "grad_accum": cfg.grad_accum, "args": args,
+        "steps": [{k: r[k] for k in ("step", "loss", "accuracy",
+                                      "grad_norm", "lr", "step_time_s")}
+                  for r in recs],
+        "resumed_leg_steps": [r["step"] for r in recs_b],
+        "profiled_steps": profiled, "peak_cuda_bytes": peak,
+        "checkpoint_io": io, "resume_rel": rel, "resume_bit_equal": equal,
+        "deterministic_algorithms_needed": deterministic,
+        "restored_step": manifest["step"], "seconds": legs_s}
+    _line({"phase": "train_lm", **out["lm_train"], "card": card})
+
+    cfg = cfg.replace(compute_dtype="float32", decode_per_slot=True)
+    gen = torch.Generator().manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT),
+                         generator=gen).to(dev)
+    step = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen).to(dev)
+    pos = torch.tensor([LM_PROMPT, LM_PROMPT // 2 + 1], dtype=torch.int32,
+                       device=dev)
+    d_logits, d_cache = model_lib.prefill(cfg, params, {"tokens": toks})
+    dense = (d_logits, d_cache,
+             *model_lib.decode_step(cfg, params, d_cache, step, pos))
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=gen).tolist() for n in LM_PROMPTS]
+    engine = _lm_drain(Engine(cfg, params, slots=LM_LANES,
+                              cache_len=LM_CACHE), prompts,
+                       lambda uid, p: Request(uid=uid, prompt=p,
+                                              max_new_tokens=LM_NEW))
+    oracle = {st.request.uid: st.generated for st in engine.finished}
+    res, clm, router, _ = _lm_tenant(torch, on_path, cfg, params,
+                                     "memristor", dev, toks, step, pos,
+                                     dense, prompts, oracle)
+    res["seconds"] = dict(zip(("compile_and_parity", "serving"),
+                              res["seconds"]))
+    out["served"] = res
+    del clm, router, params, engine
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _line({"phase": "train_served", **res, "card": card})
+    _line({"phase": "train", "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return path
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -2217,11 +2625,13 @@ def main() -> int:
             torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev, card)
         phase_deploy_times(torch, chip_mod, two, het, x_tuned, card)
         lm_launches = phase_lm(torch, ops, ref, tcl, dev, card)
+        train_launches = phase_train(torch, ops, ref, tcompile, tq, tcl,
+                                     chip_mod, var, dev, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
                           fleet_launches, rank_launches, deploy_launches,
-                          lm_launches):
+                          lm_launches, train_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

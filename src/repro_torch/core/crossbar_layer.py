@@ -26,14 +26,27 @@ train off-chip → program once → stream inference) is structural:
                         default, as in the reference).
     digital_apply     — int MAC + fused requantize/bias/activation.
 
+  TRAIN (ex-situ, the QAT trainer's forward)
+    mlp_apply         — modes float | qat (plain ``h @ w + b``, as the
+                        reference's, which has no kernel there either)
+                        and the deployed crossbar | digital, which go
+                        through ``programmed_mlp_apply`` (the kernels),
+                        programming a param set once through a small
+                        memo (``clear_program_cache`` drops it).
+
+``crossbar_linear`` / ``digital_linear`` are the reference's deprecated
+one-shot program-and-apply conveniences: they re-program on every call.
+
 Programmed state lives in frozen dataclasses holding tensors on one
 device; ``*_from_numpy`` carry weights and programmed state across
 from numpy (the parity tests hand the reference's arrays over so).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +63,12 @@ from repro_torch.runtime import DeviceLike, resolve_device
 def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return torch.nn.functional.pad(
         x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
+
+
+def _deprecated(name: str, instead: str) -> None:
+    warnings.warn(
+        f"{name} is deprecated; use {instead} (the unified chip API: "
+        "compile once, stream many)", DeprecationWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +202,26 @@ def crossbar_apply(params: CrossbarParams, x: torch.Tensor, *,
             out = out + bias.to(torch.float32)[None, :]
         out = q.make_activation(activation)(out)
     return out.reshape(*lead, params.d_out).to(x.dtype)
+
+
+def crossbar_linear(x: torch.Tensor, w: torch.Tensor, *,
+                    geom: CoreGeometry = MEMRISTOR_GEOM,
+                    device_model: DeviceModel = DEFAULT_DEVICE,
+                    quantize: bool = True, r_seg: float = 0.0,
+                    activation: str = "linear",
+                    noise_key: Optional[torch.Generator] = None,
+                    use_kernel: bool = False) -> torch.Tensor:
+    """DEPRECATED one-shot program + apply: re-programs the crossbars
+    on every call. Hold a CrossbarParams from program_layer, or compile
+    the network with ``repro_torch.chip.compile_chip``."""
+    _deprecated("crossbar_linear",
+                "program_layer(...) + crossbar_apply, or "
+                "repro_torch.chip.compile_chip(...).stream")
+    params = program_layer(w, geom=geom, device_model=device_model,
+                           quantize=quantize, noise_key=noise_key,
+                           r_seg=r_seg)
+    return crossbar_apply(params, x, activation=activation,
+                          use_kernel=use_kernel)
 
 
 # --------------------------------------------------------------------- #
@@ -337,6 +376,21 @@ def digital_apply(params: DigitalParams, x: torch.Tensor, *,
     return out.reshape(*lead, params.d_out).to(x.dtype)
 
 
+def digital_linear(x: torch.Tensor, w: torch.Tensor, *, bits: int = 8,
+                   activation: str = "linear",
+                   use_kernel: bool = False) -> torch.Tensor:
+    """DEPRECATED one-shot SRAM-core execution (§II.A datapath):
+    re-quantizes the weights on every call. Hold a DigitalParams from
+    program_digital, or compile with ``repro_torch.chip.compile_chip``."""
+    _deprecated("digital_linear",
+                "program_digital(...) + digital_apply, or "
+                "repro_torch.chip.compile_chip(..., system='digital')"
+                ".stream")
+    params = program_digital(w, bits=bits)
+    return digital_apply(params, x, activation=activation,
+                         use_kernel=use_kernel)
+
+
 # --------------------------------------------------------------------- #
 # the paper's app networks
 # --------------------------------------------------------------------- #
@@ -455,4 +509,78 @@ def programmed_mlp_apply(prog: ProgrammedMLP, x: torch.Tensor, *,
     h = x
     for lp, b, act in zip(prog.layers, prog.biases, prog.activations):
         h = apply_fn(lp, h, bias=b, activation=act, use_kernel=use_kernel)
+    return h
+
+
+# Small FIFO memo so mlp_apply(mode="crossbar"|"digital") programs each
+# param set once even when the caller holds no ProgrammedMLP. The key
+# is the *identity* of the weight tensors; entries keep strong refs to
+# their anchors so a live key can never alias a recycled id().
+_MLP_PROGRAM_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_MLP_PROGRAM_CACHE_MAX = 8
+
+
+def clear_program_cache() -> None:
+    """Drop all memoized ProgrammedMLPs (and the strong refs they hold
+    to their source param tensors). Long-lived processes that cycle
+    through many models should call this — or hold ProgrammedMLPs
+    explicitly via program_mlp and skip the memo."""
+    _MLP_PROGRAM_CACHE.clear()
+
+
+def _cached_program_mlp(params, spec: MLPSpec, mode: str,
+                        weight_bits: int) -> ProgrammedMLP:
+    anchors = tuple(p["w"] for p in params) + tuple(p["b"] for p in params)
+    key = (mode, weight_bits, spec, tuple(id(a) for a in anchors))
+    hit = _MLP_PROGRAM_CACHE.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], anchors)):
+        _MLP_PROGRAM_CACHE.move_to_end(key)
+        return hit[1]
+    with torch.no_grad():
+        prog = program_mlp(params, spec, mode=mode, weight_bits=weight_bits)
+    _MLP_PROGRAM_CACHE[key] = (anchors, prog)
+    while len(_MLP_PROGRAM_CACHE) > _MLP_PROGRAM_CACHE_MAX:
+        _MLP_PROGRAM_CACHE.popitem(last=False)
+    return prog
+
+
+def mlp_apply(params, x: torch.Tensor, spec: MLPSpec, *,
+              weight_bits: int = 8, act_bits: int = 8,
+              mode: str = "float",
+              programmed: Optional[ProgrammedMLP] = None,
+              use_kernel: bool = True) -> torch.Tensor:
+    """mode: float | qat | crossbar | digital — the Fig. 12 sweep axes.
+
+    float/qat are the ex-situ TRAINING forward (the QAT trainer's
+    path), plain ``h @ w + b`` with straight-through fake quantization
+    in qat. The deployed modes are DEPRECATED here, as in the
+    reference: deployment belongs to ``repro_torch.chip.compile_chip(
+    spec, params=...).stream(x)``. Pass ``programmed`` (from
+    program_mlp), or let the memo program this param set on first use.
+    They stream through the kernels (``use_kernel``, the port's
+    default; the reference's is its einsum path)."""
+    if mode in ("crossbar", "digital"):
+        if programmed is None:
+            _deprecated(f"mlp_apply(mode={mode!r})",
+                        "repro_torch.chip.compile_chip(spec, params=...)"
+                        ".stream(x)")
+            programmed = _cached_program_mlp(params, spec, mode,
+                                             weight_bits)
+        return programmed_mlp_apply(programmed, x, use_kernel=use_kernel)
+    if mode not in ("float", "qat"):
+        raise ValueError(f"mlp_apply: unknown mode {mode!r}")
+
+    h = x
+    n = len(params)
+    for i, p in enumerate(params):
+        act = spec.activation if i < n - 1 else spec.out_activation
+        if mode == "qat":
+            w = q.fake_quant(p["w"], bits=weight_bits, per_column=True)
+            h = h @ w + p["b"]
+            h = q.make_activation(act)(h)
+            if i < n - 1:
+                h = q.fake_quant_act(h, bits=act_bits)
+        else:
+            h = h @ p["w"] + p["b"]
+            h = q.make_activation(act)(h)
     return h

@@ -4,14 +4,13 @@ Port of ``repro.models.layers``: the same arithmetic in the same order
 and dtypes. ``dense_init``/``embed_init`` draw a truncated normal on
 [-2, 2] from a ``torch.Generator``; the reference's ``jax.random``
 draws cannot be replayed, so comparisons hand weights across
-(``repro_torch.models.model.params_from_numpy``). ``cross_entropy``
-and the causal-conv helpers belong to the training and SSM slice
-(ROADMAP Queue 1 item 9).
+(``repro_torch.models.model.params_from_numpy``). The causal-conv
+helpers belong to the SSM slice (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -145,3 +144,29 @@ def lm_logits(h: torch.Tensor, head_w: torch.Tensor,
     f32 = torch.float32
     logits = torch.matmul(h.to(f32), head_w.to(h.dtype).to(f32))
     return softcap(logits, final_cap)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over valid (label >= 0) positions; logits over the padded
+    vocab, whose pad columns are masked to -1e30. Returns (loss,
+    accuracy), f32 scalars.
+
+    The label's logit is gathered; the reference sums a one-hot
+    selection instead (which keeps a TP-sharded vocab dim sharded) —
+    the same value, since every other term it adds is zero."""
+    logits = logits.to(torch.float32)
+    pv = logits.shape[-1]
+    labels = labels.to(device=logits.device, dtype=torch.int64)
+    if pv > vocab_size:
+        vocab_ids = torch.arange(pv, device=logits.device)
+        logits = torch.where(vocab_ids < vocab_size, logits,
+                             torch.tensor(-1e30, device=logits.device))
+    valid = labels >= 0
+    safe_labels = torch.where(valid, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
+    nll = (logz - ll) * valid
+    denom = torch.clamp(valid.sum(), min=1)
+    acc = ((torch.argmax(logits, -1) == safe_labels) * valid).sum() / denom
+    return nll.sum() / denom, acc

@@ -1,8 +1,10 @@
-"""Public model API: init / forward / prefill / decode_step.
+"""Public model API: init / forward / prefill / decode_step / loss.
 
-Port of ``repro.models.model`` (the training loss is ROADMAP Queue 1
-item 9). The same batch-dict conventions (global shapes):
+Port of ``repro.models.model``. The same batch-dict conventions
+(global shapes):
 
+  train:   {"tokens": (B, S) int, "labels": (B, S) int} or
+           {"embeds": (B, S, d), "labels": (B, S)}
   prefill: {"tokens": (B, S) int} or {"embeds": (B, S, d)} → cache
   decode:  {"tokens": (B, 1) int, "pos": () or (B,) int, cache}
 
@@ -26,9 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (cdtype, dense_init, embed_init,
-                                       embed_tokens, lm_logits, pdtype,
-                                       rms_norm)
+from repro_torch.models.layers import (cdtype, cross_entropy, dense_init,
+                                       embed_init, embed_tokens, lm_logits,
+                                       pdtype, rms_norm)
 from repro_torch.runtime import DeviceLike, resolve_device
 from repro_torch.variability.noise import stream_seed
 
@@ -146,6 +148,25 @@ def forward(cfg, params, batch, mode: str = "train",
                                     cache=cache)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, new_cache, aux
+
+
+def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """Training loss: cross-entropy of the head's logits against
+    ``batch["labels"]`` (labels < 0 masked out), plus the router's
+    auxiliary loss where a stack reports one (MoE; no ported stack
+    does yet). Returns (loss, metrics)."""
+    h, _, aux = forward(cfg, params, batch, mode="train")
+    logits = _head(cfg, params, h)
+    loss, acc = cross_entropy(logits, torch.as_tensor(batch["labels"]),
+                              cfg.vocab_size)
+    metrics = {"loss": loss, "accuracy": acc}
+    if aux and "aux_loss" in aux:
+        metrics["moe_aux"] = aux["aux_loss"]
+        metrics["moe_drop"] = aux.get("drop_frac",
+                                      torch.zeros((), device=loss.device))
+        loss = loss + cfg.router_aux_weight * aux["aux_loss"]
+    metrics["total_loss"] = loss
+    return loss, metrics
 
 
 def prefill(cfg, params, batch) -> Tuple[torch.Tensor, Any]:

@@ -2,8 +2,20 @@
 
 Port of the dense half of ``repro.models.transformer``. Parameters are
 stacked along a leading layer axis, as the reference's scan stacks
-them; a Python loop over the layers replaces the scan (and its remat,
-which only training uses). Stack API, as the reference's:
+them; a Python loop over the layers replaces the scan. In train mode
+each block is rematerialised as ``cfg.remat`` says, as the reference
+wraps its scan body in ``jax.checkpoint``:
+
+  "full" — ``torch.utils.checkpoint.checkpoint`` (non-reentrant) around
+           each block: only the block's input is kept, the rest is
+           recomputed in the backward pass;
+  "dots" — the same with a selective policy that keeps the outputs of
+           the plain matrix products (``aten.mm``/``addmm``: the
+           reference's ``dots_with_no_batch_dims_saveable``; batched
+           products such as attention scores are recomputed);
+  "none" — no checkpointing.
+
+Stack API, as the reference's:
 
   init(seed, cfg, device)                        -> stacked params
   apply(p, cfg, h, positions, mode, cache)       -> (h, new_cache, aux)
@@ -14,9 +26,11 @@ The moe, ssm, hybrid and xlstm stacks are ROADMAP Queue 1 item 9:
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import mlp_apply, mlp_init, pdtype, rms_norm
@@ -76,6 +90,27 @@ def _block_apply(p, cfg, h, *, positions, mode, cache, window,
     return h + m_out, new_cache, {}
 
 
+def _save_plain_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep plain (unbatched) matmul outputs."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg, mode: str) -> Callable:
+    """``fn(h) -> h`` rematerialised per ``cfg.remat`` in train mode."""
+    if mode != "train" or cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        contexts = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _save_plain_matmuls)
+        return lambda h: ckpt.checkpoint(fn, h, use_reentrant=False,
+                                         context_fn=contexts)
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return lambda h: ckpt.checkpoint(fn, h, use_reentrant=False)
+
+
 def _layer_windows(cfg) -> torch.Tensor:
     """Per-layer sliding window (0 = full), an int32 tensor on the CPU
     (its 0-d entries are what the blocks get: see ``attn_apply``).
@@ -112,6 +147,13 @@ class DenseStack:
     def apply(cls, p, cfg, h, *, positions, mode,
               cache: Optional[Dict] = None):
         windows = _layer_windows(cfg)
+        if mode == "train":
+            for layer in range(cfg.num_layers):
+                def block(h, p_l=layer_slice(p, layer), w=windows[layer]):
+                    return _block_apply(p_l, cfg, h, positions=positions,
+                                        mode=mode, cache=None, window=w)[0]
+                h = _remat(block, cfg, mode)(h)
+            return h, None, {}
         caches = []
         for layer in range(cfg.num_layers):
             h, c_new, _ = _block_apply(

@@ -386,8 +386,22 @@ _MULTI_APP_WORKER = textwrap.dedent("""
         "global": {k: dataclasses.asdict(v) for k, v in g.apps.items()}
         | {"fleet": dataclasses.asdict(g.fleet)},
         "local": {k: dataclasses.asdict(v) for k, v in
-                  d.stats().apps.items()}}))
+                  d.stats().apps.items()}}), flush=True)
+    # leave the group together, as the fleet's own workers do: a rank
+    # that exits while its peer's gloo pairs are still open can abort
+    # the peer in teardown
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
 """)
+
+
+def _ranks_report(results) -> str:
+    """Each rank's exit, supervisor flags and output tails: what a
+    failure of a spawned fleet prints, so that it names its cause."""
+    return "\n".join(
+        f"rank {r.rank}: returncode {r.returncode}, killed {r.killed}, "
+        f"crashed {r.crashed}\n  stdout: {r.stdout[-1500:]}\n"
+        f"  stderr: {r.stderr[-3000:]}" for r in results)
 
 
 def test_two_rank_multi_app_deployment_on_the_cpu():
@@ -400,9 +414,9 @@ def test_two_rank_multi_app_deployment_on_the_cpu():
     results = tsimdev.launch_local_fleet(
         [sys.executable, "-c", _MULTI_APP_WORKER], 2, chips_per_process=2,
         timeout=120.0, poll_s=0.05)
-    assert all(r.returncode == 0 for r in results), \
-        [r.stderr_tail for r in results]
+    assert all(r.returncode == 0 for r in results), _ranks_report(results)
     ranks = [tsimdev.last_json_line(r.stdout) for r in results]
+    print(_ranks_report(results))     # shown by pytest if an assert fails
     assert {r["router"] for r in ranks} == {"DistributedMultiAppRouter"}
     assert len({r["steps"] for r in ranks}) == 1
     assert all(r["direct"] and r["local_equal"] for r in ranks)

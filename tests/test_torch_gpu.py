@@ -556,3 +556,114 @@ def test_gpu_full_width_compile_lm_prefill_matches_dense(cuda, system):
     assert _rel(got.cpu(), want.cpu()) <= 1e-5
     for k in want_cache:
         assert _rel(cache[k].cpu(), want_cache[k].cpu()) <= 1e-5
+
+
+# ---------------- ex-situ training on the card ------------------------ #
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["memristor", "digital"])
+def test_gpu_trained_net_deployed_equals_the_plain_path(cuda, system):
+    """A deep app QAT-trained on the card (8-bit, threshold, 100 steps)
+    and compiled: its test-set predictions through the kernels equal
+    the einsum path's outside the near-zero band, and its deployed
+    accuracy is within 3 points of the QAT forward."""
+    from repro_torch.data import mnist_like
+    from repro_torch.optim import qat
+    xtr, ytr = mnist_like(seed=0, n=1024)
+    xte, yte = mnist_like(seed=1, n=512)
+    t = qat.train_mlp(xtr, ytr, DEEP, activation="threshold",
+                      weight_bits=8, act_bits=8, steps=100, device=cuda)
+    assert t["params"][0]["w"].device.type == "cuda"
+    chip = compile_chip(t["spec"], params=t["params"], system=system,
+                        device=cuda)
+    x, y = xte.to(cuda), yte.to(cuda)
+    ops.reset_launch_counts()
+    got = chip.stream(x)
+    key = "crossbar_mvm" if system == "memristor" else "int8_matmul_fused"
+    assert ops.launch_counts()[key] == 3
+    plain = chip.stream(x, use_kernel=False)
+    h = x
+    clear = torch.ones(x.shape[0], dtype=torch.bool, device=cuda)
+    for layer in chip.plan[:-1]:
+        lin = dataclasses.replace(layer, activation="linear")
+        pre = tcompile._apply_stream_layer(lin, h, False)
+        clear &= ~(pre.abs() <= BAND * pre.abs().max()).any(dim=1)
+        h = tq.make_activation(layer.activation)(pre)
+    assert int(clear.sum()) >= 256
+    assert torch.equal(got.argmax(-1)[clear], plain.argmax(-1)[clear])
+    acc_qat = qat.accuracy(t["params"], t["spec"], x, y, mode="qat")
+    acc = qat.accuracy(t["params"], t["spec"], x, y, mode=system,
+                       chip=chip)
+    assert abs(acc - acc_qat) <= 0.03 and acc > 0.5
+
+
+def _reduced_cfg(compute):
+    from repro_torch.configs import get_reduced
+    return get_reduced("qwen1.5-0.5b").replace(compute_dtype=compute)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute,loss_tol,grad_tol",
+                         [("float32", 1e-5, 1e-4), ("bfloat16", 2e-3, 5e-2)])
+def test_gpu_reduced_train_step_equals_the_cpu(cuda, compute, loss_tol,
+                                               grad_tol):
+    """The reduced qwen's loss and gradients on the card against the
+    CPU on the same weights and batch (f32 compute: loss rel ≤ 1e-5,
+    gradients ≤ 1e-4, the card's matmuls sum in another order; bf16
+    compute at 2e-3 and 5e-2, as the CPU parity with the reference),
+    and one accumulated train step (AdamW at eps 1e-4, see
+    ``tests/test_torch_train.py``) at rel ≤ 1e-4."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import flatten_with_path, tree_map
+    from repro_torch.train import steps
+    cfg = _reduced_cfg(compute).replace(grad_accum=2)
+    cpu_params = model_lib.init_params(cfg, 0, device="cpu")
+    card_params = tree_map(lambda p: p.to(cuda), cpu_params)
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=32,
+                          global_batch=8, seed=2).batch(0)
+    m_cpu, g_cpu = steps.value_and_grad(cfg, cpu_params, batch)
+    m_card, g_card = steps.value_and_grad(
+        cfg, card_params, {k: v.to(cuda) for k, v in batch.items()})
+    assert _rel(m_card["loss"].cpu(), m_cpu["loss"]) <= loss_tol
+    want = dict(flatten_with_path(g_cpu))
+    for k, g in flatten_with_path(g_card):
+        assert g.device.type == "cuda"
+        assert _rel(g.cpu(), want[k]) <= grad_tol, k
+    if compute != "float32":
+        return
+    opt = adamw.AdamW(lr=adamw.cosine_schedule(1e-3, 1, 4), eps=1e-4)
+    step, accum = steps.make_train_step(cfg, opt, global_batch=8)
+    assert accum == 2
+    p_cpu, s_cpu, _ = step(cpu_params, opt.init(cpu_params), batch)
+    p_card, s_card, _ = step(card_params, opt.init(card_params), batch)
+    want = dict(flatten_with_path((p_cpu, s_cpu)))
+    for k, v in flatten_with_path((p_card, s_card)):
+        assert _rel(v.cpu(), want[k]) <= 1e-4, k
+
+
+@pytest.mark.gpu
+def test_gpu_resume_on_the_card_holds(cuda, tmp_path):
+    """The reduced qwen trained 6 steps on the card through the
+    launcher, and the same job stopped after its step-3 checkpoint and
+    resumed: equal at rel ≤ 1e-6 (the reference's bound), the
+    checkpoint written from the card."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.pytree import leaves
+    from repro_torch.train import train_loop
+    args = ["--arch", "qwen1.5-0.5b", "--reduced", "--steps", "6",
+            "--global-batch", "4", "--seq-len", "32", "--ckpt-every", "3"]
+    straight = launch_train.main(args + ["--ckpt-dir",
+                                         str(tmp_path / "a")])
+    leg = launch_train.setup(launch_train.parse_args(
+        args + ["--ckpt-dir", str(tmp_path / "b")]))
+    assert leg["device"].type == "cuda"
+    train_loop.run(dataclasses.replace(leg["loop"], total_steps=3),
+                   train_step=leg["train_step"], params=leg["params"],
+                   opt_state=leg["opt_state"], pipeline=leg["pipeline"])
+    resumed = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "b")])
+    assert resumed["resumed_from"] == 3
+    for a, b in zip(leaves((straight["params"], straight["opt_state"])),
+                    leaves((resumed["params"], resumed["opt_state"]))):
+        assert a.device.type == b.device.type == "cuda"
+        assert _rel(b.cpu(), a.cpu()) <= 1e-6

@@ -1,9 +1,10 @@
 """The card scripts' bookkeeping, on the CPU: what ``chip_smoke.py``
-reports under each key of a kernel row, its phases 5 to 10 run on the
+reports under each key of a kernel row, its phases 5 to 12 run on the
 kernels' plain versions with the launch counters bumped as launches
-would (phase 9, which kills ranks, under the opt-in ``chaos`` marker), how it refuses to run without a card, and how
-``scripts/kernel_ab.py`` refuses to run without trees or a card.
-Nothing here times anything."""
+would (phase 9, which kills ranks, under the opt-in ``chaos`` marker;
+phases 11 and 12 at a reduced width), how it refuses to run without a
+card, and how ``scripts/kernel_ab.py`` refuses to run without trees or
+a card. Nothing here times anything."""
 import importlib.util
 import pathlib
 import subprocess
@@ -112,8 +113,12 @@ def cpu_smoke(monkeypatch):
 
 
 def _phase_lines(out):
+    """The JSON lines of a phase's output, by phase (the training
+    launcher prints plain lines between them)."""
     import json
-    return {d["phase"]: d for d in map(json.loads, out.splitlines())
+    return {d["phase"]: d for d in
+            map(json.loads, (line for line in out.splitlines()
+                             if line.startswith("{")))
             if "phase" in d}
 
 
@@ -361,3 +366,65 @@ def test_smoke_lm_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
     assert out.count('"metric": "lm_serving"') == 2      # memristor only
     assert out.count('"metric": "lm_forward"') == 8
     assert out.count('"lm_shape"') == 2 * 3 * 2
+
+
+def test_smoke_train_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
+    """Phase 12 on the CPU, cut to size: the QAT deep app (512 training
+    images, 60 steps) deployed on both systems with the kernels' launch
+    counts, the 12-bit net through the raw kernel's 12 plane launches,
+    Fig. 12's table and the variation-aware pair; the reduced qwen
+    trained 6 steps through the launcher, interrupted after step 3 and
+    resumed to the bit, its checkpoint saves and restores accounted;
+    the restored step-6 weights served through the crossbar launches
+    with tokens equal to the dense Engine's."""
+    import repro_torch.chip as chip_mod
+    import repro_torch.variability as var
+    from repro_torch.chip import compile as tcompile
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.core import quantization as tq
+    from repro_torch.kernels import ref
+    smoke, ops = cpu_smoke
+    monkeypatch.setattr(smoke, "QAT_TRAIN_N", 512)
+    monkeypatch.setattr(smoke, "QAT_TEST_N", 256)
+    monkeypatch.setattr(smoke, "QAT_STEPS", 60)
+    monkeypatch.setattr(smoke, "FIG12_STEPS", 5)
+    monkeypatch.setattr(smoke, "_busy", lambda torch, fn, ms, n=5: {})
+    args = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+            "--steps", "6", "--global-batch", "4", "--seq-len", "16",
+            "--ckpt-every", "3"]
+    launches = smoke.phase_train(torch, ops, ref, tcompile, tq, tcl,
+                                 chip_mod, var, torch.device("cpu"), "cpu",
+                                 train_args=args)
+    lines = _phase_lines(capsys.readouterr().out)
+    qat = lines["train_qat"]
+    for system, key in (("memristor", "crossbar_mvm"),
+                        ("digital", "int8_matmul_fused")):
+        dep = qat["deployed"][system]
+        assert dep["launches_per_batch"][key] == 3
+        assert abs(dep["qat_minus_kernel"]) <= 0.03
+    assert qat["deployed"]["digital"]["geometry"] == "256x128"
+    assert qat["wide_12_bit"]["launches_per_batch"]["int8_matmul_raw"] == 12
+    assert set(qat["fig12"]["error"]) == {"sigmoid", "threshold"}
+    assert set(qat["fig12"]["error"]["sigmoid"]) == {"32", "8", "6", "4"}
+    assert set(qat["variation_aware_pair"]) == {"clean", "variation_aware"}
+    lm = lines["train_lm"]
+    assert [r["step"] for r in lm["steps"]] == list(range(6))
+    assert lm["steps"][-1]["loss"] < lm["steps"][0]["loss"]
+    assert lm["resumed_leg_steps"] == [0, 1, 2, 3, 4, 5]
+    assert lm["resume_bit_equal"] and lm["resume_rel"] == 0.0
+    assert not lm["deterministic_algorithms_needed"]
+    assert [(r["op"], r["step"]) for r in lm["checkpoint_io"]] == [
+        ("save", 3), ("save", 6), ("save", 3), ("restore", 3),
+        ("save", 6), ("restore", 6)]
+    assert all(r["bytes"] > 0 for r in lm["checkpoint_io"])
+    assert len(lm["profiled_steps"]) == 2 and lm["restored_step"] == 6
+    served = lines["train_served"]
+    assert served["launches_per_forward"]["crossbar_mvm"] == 7 * 3
+    assert served["serving"]["tokens_equal_engine"]
+    assert all(r <= 1e-6 for r in served["rel"].values())
+    # the path: the deployed streams, accuracy(chip=), the 12-bit
+    # stream, the noisy pair, then the served LM
+    assert launches["int8_matmul_raw"] == 12
+    assert launches["int8_matmul_fused"] == 3 + 3
+    assert launches["crossbar_mvm"] == 3 + 3 + 2 * 3 + 2 * 21 + \
+        served["serving"]["launches"]["crossbar_mvm"]
