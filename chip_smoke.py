@@ -136,9 +136,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
      a 2 × 32 prefill and a decode within rel 1e-5 of the dense f32
      forward, 168 K1 launches a forward, an ``LMMember`` serving 6
      prompts × 16 tokens equal to the dense ``Engine``'s.
+ 13. families: the Eq. 3 model and the other architectures: (a)
+     ``eq3_dot_product``, ``effective_weights`` and ``crossbar_forward``
+     on the card against the CPU (rel ≤ 1e-6) on 128×64 and 256×128
+     tiles, B = 16,384, wire resistance 0 and 2.5 Ω, the de-gained
+     unquantised forward against ``x @ w``, and K1 on one tile's pairs
+     (scale = 1/column_gain) against Eq. 3 (rel ≤ 1e-5), with the
+     threshold epilogue against Eq. 3's signs; (b) the seven new
+     reduced archs (deepseek, granite, gemma2, internvl2, musicgen,
+     moonshot, dbrx) against the CPU: loss, gradients, one AdamW step,
+     prefill and prefill/decode consistency; (c) gemma2-9b at its
+     published width, 8 of 42 layers, through ``compile_lm`` on both
+     systems: a 4,160-token prefill (past the 4,096 window) and 8
+     greedy decode steps within rel 1e-5 of the dense f32 forward, 56
+     K1 launches a forward, tokens equal to the dense ones and an
+     ``LMMember``'s equal to the dense ``Engine``'s, each path's
+     forward times, and K1 at its five linear shapes at M = 1 and
+     4,160 beside ``torch.matmul`` and the bound; (d)
+     moonshot-v1-16b-a3b at its published width, 12 of 48 layers: a
+     4 × 1,024 prefill at capacity factor 1.25 and its drop share a
+     layer, layer 0's sort-based dispatch against a per-token loop
+     (nothing dropped, rel ≤ 1e-5), prefill/decode consistency, and
+     the dense ``Engine`` serving 6 prompts × 16 tokens on 4 lanes:
+     steps/s, a decode step's wall, busy time and kernels, peak CUDA
+     memory.
 
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–12 (phase 9: what the ranks report; a
+(phases 2–3) and in phases 5–13 (phase 9: what the ranks report; a
 killed rank reports nothing).
 
 It prints the card's name and power limit first, one JSON line per
@@ -233,6 +257,23 @@ TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--steps", "6", "--global-batch", "8",
 TRAIN_RESUME_AT = 3     # the interrupted leg stops after its step-3 save
 TRAIN_TOL = 1e-6        # resumed vs straight: the reference's own bound
 TRAIN_PROFILED = 2      # train steps profiled for busy time and kernels
+EQ3_B = 16384           # phase 13(a): inputs through one Eq. 3 tile
+EQ3_GEOMS = ((128, 64), (256, 128))
+EQ3_R_SEGS = (0.0, 2.5)  # ideal wires, and the reference's 2.5 Ω a segment
+EQ3_TOL = 1e-6          # Eq. 3 on the card vs the CPU: another sum order
+FAMILY_ARCHS = ("deepseek-7b", "granite-3-8b", "gemma2-9b", "internvl2-26b",
+                "musicgen-large", "moonshot-v1-16b-a3b", "dbrx-132b")
+GEMMA_LAYERS = 8        # (c): 4 of gemma2-9b's 21 local/global layer pairs
+GEMMA_PROMPT = 4160     # past the 4,096-token window
+GEMMA_NEW = 8           # greedy decode steps
+GEMMA_SHAPES = ("wq", "wk", "wo", "w1", "w2")  # its five linear shapes
+MOE_LAYERS = 12         # (d): 12 of moonshot-v1-16b-a3b's 48 layers
+MOE_BATCH = (4, 1024)   # the prefill at the published capacity factor
+MOE_LOOP_TOKENS = 512   # tokens of the per-token loop check (layer 0)
+MOE_PROMPTS = (8, 16, 24, 32, 40, 48)
+MOE_NEW = 16
+MOE_LANES = 4
+MOE_CACHE = 128
 
 
 class SmokeFailure(Exception):
@@ -557,7 +598,7 @@ TIME_KEYS = (("ms", "_time_ms", 0), ("plain_ms", "_time_ms", 1),
              ("library_device_ms", "_device_ms", 2))
 
 
-def _times(torch, kernel, plain, library) -> dict:
+def _times(torch, kernel, plain, library, iters=None) -> dict:
     """A kernel row's times of the kernel, its plain version and the
     library call: at the host's launch pace (``_time_ms``: ``ms``,
     ``plain_ms``, ``library_ms``, which include the Python wrapper's
@@ -565,7 +606,9 @@ def _times(torch, kernel, plain, library) -> dict:
     (``_device_ms``: the same keys with ``device_``)."""
     fns = (kernel, plain, library)
     timers = {"_time_ms": _time_ms, "_device_ms": _device_ms}
-    return {key: timers[timer](torch, fns[i]) for key, timer, i in TIME_KEYS}
+    kw = {} if iters is None else {"iters": iters}
+    return {key: timers[timer](torch, fns[i], **kw)
+            for key, timer, i in TIME_KEYS}
 
 
 def _kernel_row(name, source, replaces, launches, layers):
@@ -2181,38 +2224,54 @@ def phase_lm_times(torch, ops, ref, tcl, cfg, params, clm, make_router,
                **_busy(torch, fn, ms, n=2), "card": card})
 
     # K1 at the LM's shapes, on layer 0's programmed tiles
-    gen = torch.Generator().manual_seed(23)
-    for name in LM_SHAPES:
+    _k1_at_lm_shapes(torch, ops, ref, tcl, clm, LM_SHAPES, LM_SHAPE_ROWS,
+                     system, card, seed=23)
+
+
+def _k1_at_lm_shapes(torch, ops, ref, tcl, clm, names, rows, system, card,
+                     *, seed, iters=None, extra=None):
+    """K1 in partials mode on layer 0's programmed tiles of each linear
+    in ``names``, at each row count in ``rows``: against its plain
+    version (``TOL_F32``), timed beside the plain version and
+    ``torch.matmul`` on the folded weights, with the bound. One line a
+    (linear, rows), with ``extra`` keys added."""
+    dev = clm.device
+    gen = torch.Generator().manual_seed(seed)
+    for name in names:
         p = clm.plans[0][name].tiles
-        R, C, rows, cols = p.gp.shape
+        R, C, tile_rows, cols = p.gp.shape
         w_fold = tcl.folded_weights(p, torch.float32).permute(
-            0, 2, 1, 3).reshape(R, rows, C * cols).contiguous()
-        for m in LM_SHAPE_ROWS:
+            0, 2, 1, 3).reshape(R, tile_rows, C * cols).contiguous()
+        for m in rows:
             x = (torch.rand((m, p.d_in), generator=gen) * 2 - 1).to(dev)
             xt = tcl.tile_inputs(p, x)
             xr = xt.transpose(0, 1)
             got = ops.crossbar_mvm(xt, p.gp, p.gn, p.scale, partials=True)
             plain = ref.crossbar_mvm_partials_ref(xt, p.gp, p.gn, p.scale)
-            e = _rel(got, plain)
+            # in f32, in place: a prefill's partials are gigabytes
+            max_abs = float(torch.sub(got, plain).abs_().max())
+            e = max_abs / max(float(plain.abs().max()), 1e-12)
             _require(e <= TOL_F32, f"crossbar {system} {name} M={m}: rel "
                                    f"{e:.3g}")
             nbytes = 4 * (xt.numel() + 2 * p.gp.numel() + p.scale.numel() +
                           got.numel())
+            del got, plain
             t_bytes, t_ops = _bound(nbytes, TF32_PRODUCTS * 2 * m * R *
-                                    rows * C * cols, TF32_FLOPS)
+                                    tile_rows * C * cols, TF32_FLOPS)
             _line({"kernel": "crossbar_mvm", "lm_shape": name,
-                   "system": system, "shape": [m, R, C, rows, cols],
+                   "system": system, "shape": [m, R, C, tile_rows, cols],
                    "d_in": p.d_in, "d_out": p.d_out, "mode": "partials",
-                   "rel": e, "max_abs_err": float((got - plain).abs().max()),
+                   "rel": e, "max_abs_err": max_abs,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "operations" if t_ops > t_bytes else "bytes",
                    "blocks": _k1_blocks(dev, m, R, C * cols),
+                   **(extra or {}),
                    **_times(torch,
                             lambda: ops.crossbar_mvm(xt, p.gp, p.gn,
                                                      p.scale, partials=True),
                             lambda: ref.crossbar_mvm_partials_ref(
                                 xt, p.gp, p.gn, p.scale),
-                            lambda: torch.matmul(xr, w_fold)),
+                            lambda: torch.matmul(xr, w_fold), iters=iters),
                    "card": card})
 
 
@@ -2563,6 +2622,522 @@ def phase_train(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
 
 
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+# phase 13: the Eq. 3 model and the other architectures
+# --------------------------------------------------------------------- #
+def phase_eq3(torch, ops, dev, card, on_path):
+    """(a) Eq. 3 on the card: ``eq3_dot_product``, ``effective_weights``
+    and ``crossbar_forward`` on CUDA tensors against the CPU's
+    (``EQ3_TOL``) on each tile geometry and wire resistance; the
+    de-gained unquantised forward against ``x @ w`` (``LM_TOL``); then
+    K1 on one tile's programmed pairs (R = 1, scale = 1/column_gain)
+    against Eq. 3 (``LM_TOL``), and with the threshold epilogue and a
+    positive per-column gain against Eq. 3's signs outside the band."""
+    from repro_torch.core import crossbar as tcb
+    from repro_torch.core import quantization as tq
+    from repro_torch.core.device import DEFAULT_DEVICE
+
+    rows_out = []
+    gen = torch.Generator().manual_seed(31)
+    for rows, cols in EQ3_GEOMS:
+        x = torch.rand((EQ3_B, rows), generator=gen) * 2 - 1
+        w = torch.randn((rows, cols), generator=gen) * 0.2
+        gp, gn, _ = tcb.pairs_from_weights(w)
+        gain_pos = 0.2 + 2.8 * torch.rand((cols,), generator=gen)
+        xd, wd, gpd, gnd = (t.to(dev) for t in (x, w, gp, gn))
+        for r_seg in EQ3_R_SEGS:
+            res = {"tile": [rows, cols], "r_seg": r_seg, "batch": EQ3_B}
+            fns = {"eq3_dot_product": lambda x, w, gp, gn:
+                   tcb.eq3_dot_product(x, gp, gn, r_seg),
+                   "effective_weights": lambda x, w, gp, gn:
+                   tcb.effective_weights(gp, gn, r_seg),
+                   "crossbar_forward": lambda x, w, gp, gn:
+                   tcb.crossbar_forward(x, w, r_seg=r_seg)}
+            res["card_vs_cpu_rel"] = {
+                name: _rel(fn(xd, wd, gpd, gnd).cpu(), fn(x, w, gp, gn))
+                for name, fn in fns.items()}
+            for name, r in res["card_vs_cpu_rel"].items():
+                _require(r <= EQ3_TOL, f"eq3 {rows}x{cols} r_seg {r_seg} "
+                                       f"{name}: card vs cpu rel {r:.3g}")
+            if not r_seg:
+                fwd = tcb.crossbar_forward(xd, wd, quantize=False)
+                r = _rel(fwd, xd.double() @ wd.double())
+                res["unquantised_forward_vs_matmul_rel"] = r
+                _require(r <= LM_TOL, f"eq3 {rows}x{cols}: de-gained "
+                                      f"forward vs x @ w rel {r:.3g}")
+            # K1 on the tile's pairs (attenuated as Eq. 3 sees them)
+            att = tcb.wire_attenuation(rows, cols, DEFAULT_DEVICE.g_on,
+                                       r_seg, device=dev) if r_seg else 1.0
+            gpa = (gpd * att)[None, None].contiguous()
+            gna = (gnd * att)[None, None].contiguous()
+            gain = tcb.column_gain(gpa[0, 0], gna[0, 0])
+            dp = tcb.eq3_dot_product(xd, gpd, gnd, r_seg)
+            k1, per = on_path(ops.crossbar_mvm, xd[:, None, :], gpa, gna,
+                              (1.0 / gain)[None, None].contiguous())
+            res["k1_vs_eq3_rel"] = _rel(k1, dp)
+            _require(per["crossbar_mvm"] == 1 and
+                     res["k1_vs_eq3_rel"] <= LM_TOL,
+                     f"eq3 {rows}x{cols} r_seg {r_seg}: K1 vs Eq. 3 rel "
+                     f"{res['k1_vs_eq3_rel']:.3g}, launches {per}")
+            scale = (gain_pos.to(dev) / gain)[None, None].contiguous()
+            signs, _ = on_path(ops.crossbar_mvm, xd[:, None, :], gpa, gna,
+                               scale, activation="threshold")
+            clear = dp.abs() > BAND * dp.abs().max()
+            flips = int((signs != tq.threshold(dp))[clear].sum())
+            res.update(threshold_flips_outside_band=flips,
+                       outputs_in_band=int((~clear).sum()))
+            _require(flips == 0, f"eq3 {rows}x{cols} r_seg {r_seg}: "
+                                 f"{flips} threshold signs differ")
+            res["k1_ms"] = _time_ms(torch, lambda: ops.crossbar_mvm(
+                xd[:, None, :], gpa, gna, scale, activation="threshold"))
+            res["eq3_ms"] = _time_ms(torch, lambda: tcb.eq3_dot_product(
+                xd, gpd, gnd, r_seg))
+            rows_out.append(res)
+    return rows_out
+
+
+def _np_batch(np, cfg, seed, B, S):
+    """A seeded numpy train batch of the config's modality."""
+    rng = np.random.default_rng(seed)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (B, S),
+                                    dtype=np.int32)}
+    if cfg.frontend != "none":
+        batch["embeds"] = (rng.standard_normal((B, S, cfg.d_model)) *
+                           0.02).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S),
+                                       dtype=np.int32)
+    return batch
+
+
+def _grow_ring(torch, cache, length):
+    """Pad every KV leaf's ring (axis 2) to ``length`` slots."""
+    return {k: torch.nn.functional.pad(
+        v, [0, 0] * (v.dim() - 3) + [0, length - v.shape[2]])
+        for k, v in cache.items()}
+
+
+def phase_reduced_archs(torch, dev, card):
+    """(b) each new reduced arch on the card against the CPU on the same
+    seeded weights (f32 compute): the loss (rel ≤ 1e-5), each gradient
+    leaf (rel ≤ 1e-4), the router's aux (rel ≤ 1e-6), one AdamW step
+    (eps 1e-4, rel ≤ 1e-4), the prefill logits (rel ≤ 1e-5) and
+    prefill/decode consistency (the reference test's rel < 0.02)."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import flatten_with_path, tree_map
+    from repro_torch.train import steps
+
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_reduced(arch).replace(compute_dtype="float32")
+        cpu_p = model_lib.init_params(cfg, 0, device="cpu")
+        card_p = tree_map(lambda p: p.to(dev), cpu_p)
+        batch = {k: torch.from_numpy(v) for k, v in
+                 _np_batch(np, cfg, 13, 2, 32).items()}
+        m_cpu, g_cpu = steps.value_and_grad(cfg, cpu_p, batch)
+        m_card, g_card = steps.value_and_grad(
+            cfg, card_p, {k: v.to(dev) for k, v in batch.items()})
+        res = {"loss": float(m_card["loss"]),
+               "loss_rel": _rel(m_card["loss"].cpu(), m_cpu["loss"])}
+        want = dict(flatten_with_path(g_cpu))
+        res["grad_rel"] = max(_rel(g.cpu(), want[k])
+                              for k, g in flatten_with_path(g_card))
+        res["grad_norm"] = math.sqrt(sum(
+            float(g.double().square().sum()) for g in want.values()))
+        _require(math.isfinite(res["loss"]) and res["loss"] > 0 and
+                 math.isfinite(res["grad_norm"]) and res["grad_norm"] > 0,
+                 f"{arch}: loss {res['loss']}, grad norm "
+                 f"{res['grad_norm']}")
+        _require(res["loss_rel"] <= 1e-5 and res["grad_rel"] <= 1e-4,
+                 f"{arch}: card vs cpu loss rel {res['loss_rel']:.3g}, "
+                 f"grad rel {res['grad_rel']:.3g}")
+        if cfg.family == "moe":
+            res["moe_aux_rel"] = max(_rel(m_card[k].cpu(), m_cpu[k])
+                                     for k in ("moe_aux", "moe_drop"))
+            _require(res["moe_aux_rel"] <= 1e-6,
+                     f"{arch}: router aux rel {res['moe_aux_rel']:.3g}")
+        opt = adamw.AdamW(lr=adamw.cosine_schedule(1e-3, 1, 4), eps=1e-4)
+        step, _ = steps.make_train_step(cfg, opt, global_batch=2)
+        p_cpu, s_cpu, _ = step(cpu_p, opt.init(cpu_p), batch)
+        p_card, s_card, _ = step(card_p, opt.init(card_p), batch)
+        want = dict(flatten_with_path((p_cpu, s_cpu)))
+        res["step_rel"] = max(_rel(v.cpu(), want[k]) for k, v in
+                              flatten_with_path((p_card, s_card)))
+        _require(res["step_rel"] <= 1e-4,
+                 f"{arch}: AdamW step card vs cpu rel {res['step_rel']:.3g}")
+        toks = torch.from_numpy(np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (2, 32), dtype=np.int32)).to(dev)
+        full, _ = model_lib.prefill(cfg, card_p, {"tokens": toks})
+        full_cpu, _ = model_lib.prefill(cfg, cpu_p, {"tokens": toks.cpu()})
+        _, cache = model_lib.prefill(cfg, card_p, {"tokens": toks[:, :31]})
+        dec, _ = model_lib.decode_step(cfg, card_p,
+                                       _grow_ring(torch, cache, 32),
+                                       toks[:, 31:], torch.tensor(31))
+        res["prefill_rel"] = _rel(full.cpu(), full_cpu)
+        res["decode_vs_prefill_rel"] = _rel(dec, full)
+        _require(res["prefill_rel"] <= 1e-5 and
+                 res["decode_vs_prefill_rel"] < 0.02,
+                 f"{arch}: prefill card vs cpu rel "
+                 f"{res['prefill_rel']:.3g}, decode vs prefill "
+                 f"{res['decode_vs_prefill_rel']:.3g}")
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+    return out
+
+
+def phase_gemma2(torch, ops, ref, tcl, dev, card, on_path, cfg=None,
+                 prompt=GEMMA_PROMPT, new=GEMMA_NEW, shape_rows=None):
+    """(c) gemma2-9b at its published width, cut to ``GEMMA_LAYERS``
+    layers (seed-0 weights on the card, f32), through ``compile_lm`` on
+    memristor 128×64 and digital 256×128: a ``prompt``-token prefill
+    (past the 4,096 window, so the local layers mask) and ``new``
+    greedy decode steps, mapped against the dense f32 forward at each
+    step (``LM_TOL``; both fed the dense path's tokens), 7 × layers K1
+    launches a forward, the mapped greedy tokens equal to the dense
+    ones, an ``LMMember`` served through ``MultiAppRouter`` equal to the
+    dense ``Engine`` token for token; each path's prefill and decode
+    wall and busy time; K1 at the five linear shapes at M = 1 and the
+    prefill's M."""
+    from repro_torch.configs import gemma2_9b
+    from repro_torch.deploy import MultiAppRouter
+    from repro_torch.lm import (LMMember, TransformerParams, compile_lm,
+                                lm_request, tokens_from_state)
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import Engine, Request
+
+    cfg = (cfg or gemma2_9b.CONFIG.replace(num_layers=GEMMA_LAYERS)) \
+        .replace(compute_dtype="float32", decode_per_slot=True)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    out = {"config": cfg.name, "layers": L, "published_layers": 42,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                            cfg.num_kv_heads,
+                                            cfg.head_dim],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "window": cfg.sliding_window,
+           "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+           "params": cfg.param_count(), "prompt": prompt,
+           "decode_steps": new, "init_s": time.perf_counter() - t0,
+           "systems": {}}
+    gen = torch.Generator().manual_seed(37)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt),
+                         generator=gen).to(dev)
+    ring = prompt + new + 1
+
+    def greedy_run(prefill, decode, feed=None):
+        """Prefill, then ``new`` decodes, each fed the token ``feed``
+        gives (default: the run's own greedy picks): each step's logits
+        and the run's greedy picks."""
+        logits, cache = prefill()
+        steps_, picks = [logits], [int(logits.argmax(-1))]
+        cache = _grow_ring(torch, cache, ring)
+        for i in range(new):
+            tok = torch.tensor([[(feed or picks)[i]]], device=dev)
+            pos = torch.tensor([prompt + i], dtype=torch.int32, device=dev)
+            logits, cache = decode(cache, tok, pos)
+            steps_.append(logits)
+            picks.append(int(logits.argmax(-1)))
+        return steps_, picks
+
+    dense_steps, dense_tokens = greedy_run(
+        lambda: model_lib.prefill(cfg, params, {"tokens": toks}),
+        lambda c, t, p: model_lib.decode_step(cfg, params, c, t, p))
+    engine = _lm_drain(Engine(cfg, params, slots=1, cache_len=ring),
+                       [toks[0].tolist()],
+                       lambda uid, p: Request(uid=uid, prompt=p,
+                                              max_new_tokens=new + 1))
+    oracle = {st.request.uid: st.generated for st in engine.finished}
+    out["dense_tokens"] = dense_tokens
+    out["engine_tokens"] = oracle[0]
+    del engine
+    window_masks = _rel(model_lib.prefill(
+        cfg.replace(local_global=False, sliding_window=0), params,
+        {"tokens": toks})[0], dense_steps[0])
+    out["full_attention_twin_rel"] = window_masks
+    _require(window_masks > 1e-4, f"gemma2: the windowed prefill equals "
+                                  f"full attention (rel {window_masks:.3g})")
+
+    for system in ("memristor", "digital"):
+        t_sys = time.perf_counter()
+        res = {}
+        clm, per = on_path(compile_lm, TransformerParams(cfg, params),
+                           system=system, device=dev)
+        torch.cuda.synchronize()
+        res["compile_s"] = time.perf_counter() - t_sys
+        res["geometry"] = f"{clm.geom.rows}x{clm.geom.cols}"
+        res["tile_bytes"] = sum(4 * (pl.tiles.gp.numel() +
+                                     pl.tiles.gn.numel())
+                                for plans in clm.plans
+                                for pl in plans.values())
+        if dev.type == "cuda":
+            res["cuda_memory_bytes"] = torch.cuda.memory_allocated(dev)
+        launches = []
+
+        def counted(fn, *a):
+            got, per = on_path(fn, *a)
+            launches.append(per["crossbar_mvm"])
+            return got
+
+        m_steps, m_tokens = greedy_run(
+            lambda: counted(clm.prefill, toks),
+            lambda c, t, p: counted(clm.decode, c, t, p),
+            feed=dense_tokens)
+        res["launches_per_forward"] = sorted(set(launches))
+        res["rel"] = [_rel(m, d) for m, d in zip(m_steps, dense_steps)]
+        res["tokens_equal_dense"] = m_tokens == dense_tokens
+        _require(launches == [7 * L] * (new + 1),
+                 f"gemma2 {system}: K1 launches a forward {launches}")
+        _require(max(res["rel"]) <= LM_TOL,
+                 f"gemma2 {system}: mapped vs dense rel by step "
+                 f"{res['rel']}")
+        _require(res["tokens_equal_dense"],
+                 f"gemma2 {system}: greedy tokens {m_tokens} vs dense "
+                 f"{dense_tokens}")
+        member = LMMember(clm, lanes=1, cache_len=ring)
+        router, per = on_path(
+            _lm_drain, MultiAppRouter({"lm": member}, lanes={"lm": 1}),
+            [toks[0].tolist()],
+            lambda uid, p: lm_request(p, new + 1, uid=uid, key="lm"))
+        got = {st.request.uid: tokens_from_state(st)
+               for st in router.finished}
+        res["served_tokens_equal_engine"] = got == oracle
+        res["serving_launches"] = per["crossbar_mvm"]
+        _require(got == oracle, f"gemma2 {system}: served tokens differ "
+                                f"from the dense Engine: "
+                                f"{_first_divergence(got, oracle)}")
+        _require(per["crossbar_mvm"] == 7 * L * (router.steps + 1),
+                 f"gemma2 {system}: serving launches {per} in "
+                 f"{router.steps} steps")
+        del router, member
+        res["parity_s"] = time.perf_counter() - t_sys - res["compile_s"]
+
+        # one forward of each kind, timed: wall, busy time, kernels
+        cache = _grow_ring(torch, clm.prefill(toks)[1], ring)
+        tok = torch.tensor([[dense_tokens[0]]], device=dev)
+        pos = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        calls = {("decode", "mapped"): lambda: clm.decode(cache, tok, pos),
+                 ("decode", "dense"): lambda: model_lib.decode_step(
+                     cfg, params, cache, tok, pos),
+                 ("prefill", "mapped"): lambda: clm.prefill(toks),
+                 ("prefill", "dense"): lambda: model_lib.prefill(
+                     cfg, params, {"tokens": toks})}
+        for (what, kind), fn in calls.items():
+            if system == "digital" and kind == "dense":
+                continue
+            ms = _time_ms(torch, fn, iters=3, warmup=1)
+            _line({"metric": "lm_forward", "config": cfg.name,
+                   "layers": L, "system": system, "what": what,
+                   "path": kind, "rows": 1 if what == "decode" else prompt,
+                   "ms": ms, **_busy(torch, fn, ms, n=1), "card": card})
+        del cache
+        _k1_at_lm_shapes(torch, ops, ref, tcl, clm, GEMMA_SHAPES,
+                         shape_rows or (1, prompt), system, card, seed=41,
+                         iters=5, extra={"config": cfg.name})
+        res["seconds"] = time.perf_counter() - t_sys
+        out["systems"][system] = res
+        del clm
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_loop(torch, p, cfg, x):
+    """The plain MoE: token by token, each token's top-k experts by
+    ``torch.topk`` on its softmax, renormalised gates, plus the shared
+    experts. x (T, d) → (T, d)."""
+    from repro_torch.models.layers import act_fn
+
+    act = act_fn(cfg.act)
+    sh = p.get("shared")
+    out = []
+    for t in range(x.shape[0]):
+        xt = x[t]
+        gates, ids = torch.topk(torch.softmax(xt @ p["router"], -1),
+                                cfg.top_k)
+        gates = gates / gates.sum()
+        y = torch.zeros_like(xt)
+        for g, e in zip(gates, ids.tolist()):
+            y = y + g * ((act(xt @ p["w1"][e]) * (xt @ p["w3"][e]))
+                         @ p["w2"][e])
+        if sh is not None:
+            y = y + (act(xt @ sh["w1"]) * (xt @ sh["w3"])) @ sh["w2"]
+        out.append(y)
+    return torch.stack(out)
+
+
+def phase_moe(torch, dev, card, cfg=None, batch=MOE_BATCH,
+              loop_tokens=MOE_LOOP_TOKENS, prompts=MOE_PROMPTS,
+              new=MOE_NEW):
+    """(d) moonshot-v1-16b-a3b at its published width, cut to
+    ``MOE_LAYERS`` layers (seed-0 weights on the card, f32): a prefill
+    of ``batch`` tokens at the published capacity factor (the drop
+    share a layer, wall, busy time); on layer 0, with a capacity factor
+    at which nothing drops, the sort-based dispatch against a plain
+    per-token loop (``LM_TOL``); prefill/decode consistency on 2 × 32
+    tokens at that capacity factor (rel < 0.02, the reference test's
+    bound); the dense
+    ``Engine`` serving ``prompts`` × ``new`` tokens on ``MOE_LANES``
+    lanes at the published capacity factor: steps/s over drains, a
+    decode step's wall, busy time and kernels, and peak CUDA memory."""
+    from repro_torch.configs import moonshot_v1_16b_a3b
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serving import Engine, Request
+
+    cfg = (cfg or moonshot_v1_16b_a3b.CONFIG.replace(
+        num_layers=MOE_LAYERS)).replace(compute_dtype="float32")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    out = {"config": cfg.name, "layers": L, "published_layers": 48,
+           "d_model": cfg.d_model, "experts": [cfg.num_experts, cfg.top_k,
+                                               cfg.num_shared_experts],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "params": cfg.param_count(),
+           "active_params": cfg.param_count(active_only=True),
+           "init_s": time.perf_counter() - t0}
+    gen = torch.Generator().manual_seed(43)
+    toks = torch.randint(0, cfg.vocab_size, batch, generator=gen).to(dev)
+
+    # a prefill at the published capacity factor
+    def prefill():
+        return model_lib.forward(cfg, params, {"tokens": toks},
+                                 mode="prefill")
+    h, _, aux = prefill()
+    _require(bool(torch.isfinite(h).all()), "moe prefill: not finite")
+    ms = _time_ms(torch, prefill, iters=3, warmup=1)
+    out["prefill"] = {
+        "tokens": list(batch), "capacity_factor": cfg.capacity_factor,
+        "capacity": moe_mod.capacity(batch[0] * batch[1], cfg),
+        "drop_frac_summed_over_layers": float(aux["drop_frac"]),
+        "drop_frac_per_layer": float(aux["drop_frac"]) / L,
+        "aux_loss_per_layer": float(aux["aux_loss"]) / L,
+        "ms": ms, **_busy(torch, prefill, ms, n=1)}
+    del h, aux
+
+    # layer 0's dispatch against the per-token loop, nothing dropped
+    p0 = tf.layer_slice(params["stack"], 0)
+    x = rms_norm(model_lib._embed_in(cfg, params,
+                                     {"tokens": toks[:1, :loop_tokens]},
+                                     torch.float32),
+                 p0["mlp_norm"], cfg.norm_eps)
+    roomy = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+    y, aux0 = moe_mod.moe_apply(p0["mlp"], roomy, x)
+    t1 = time.perf_counter()
+    y_loop = _moe_loop(torch, p0["mlp"], roomy, x[0])
+    torch.cuda.synchronize()
+    out["dispatch_vs_loop"] = {
+        "tokens": loop_tokens, "capacity_factor": roomy.capacity_factor,
+        "capacity": moe_mod.capacity(loop_tokens, roomy),
+        "drop_frac": float(aux0["drop_frac"]), "rel": _rel(y[0], y_loop),
+        "loop_s": time.perf_counter() - t1}
+    _require(out["dispatch_vs_loop"]["drop_frac"] == 0.0 and
+             out["dispatch_vs_loop"]["rel"] <= LM_TOL,
+             f"moe dispatch vs loop {out['dispatch_vs_loop']}")
+
+    # prefill/decode consistency on 2 × 32 tokens, at the capacity
+    # factor where nothing drops (at 1.25 the 64-token prefill's
+    # capacity is 8 a expert, and the tokens it drops are not the
+    # decode's)
+    ctoks = toks[:2, :32]
+    full, _ = model_lib.prefill(roomy, params, {"tokens": ctoks})
+    _, cache = model_lib.prefill(roomy, params, {"tokens": ctoks[:, :31]})
+    dec, _ = model_lib.decode_step(roomy, params,
+                                   _grow_ring(torch, cache, 32),
+                                   ctoks[:, 31:], torch.tensor(31))
+    out["decode_vs_prefill"] = {"capacity_factor": roomy.capacity_factor,
+                                "rel": _rel(dec, full)}
+    _require(out["decode_vs_prefill"]["rel"] < 0.02,
+             f"moe decode vs prefill {out['decode_vs_prefill']}")
+    del cache
+
+    # the dense Engine serving requests
+    pgen = torch.Generator().manual_seed(47)
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=pgen).tolist()
+            for n in prompts]
+    rates, tokens = [], None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(1 + SERVE_DRAINS):      # the first drain warms up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng = _lm_drain(Engine(cfg, params, slots=MOE_LANES,
+                               cache_len=MOE_CACHE), reqs,
+                        lambda uid, p: Request(uid=uid, prompt=p,
+                                               max_new_tokens=new))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        rates.append((eng.steps / wall, len(reqs) * new / wall))
+        got = {st.request.uid: st.generated for st in eng.finished}
+        _require(tokens is None or got == tokens,
+                 "moe Engine: drains gave different tokens")
+        tokens = got
+    _require(sorted(len(v) for v in tokens.values()) == [new] * len(reqs)
+             and all(0 <= t < cfg.vocab_size for v in tokens.values()
+                     for t in v), f"moe Engine tokens {tokens}")
+    cache = model_lib.init_cache(cfg, MOE_LANES, MOE_CACHE, device=dev)
+    dcfg = cfg.replace(decode_per_slot=True)
+    step_tok = toks[:MOE_LANES, :1]
+    step_pos = torch.tensor([8, 17, 30, 47][:MOE_LANES], dtype=torch.int32,
+                            device=dev)
+    decode = lambda: model_lib.decode_step(  # noqa: E731
+        dcfg, params, cache, step_tok, step_pos)
+    ms = _time_ms(torch, decode, iters=5)
+    out["serving"] = {
+        "lanes": MOE_LANES, "requests": len(reqs), "new_tokens": new,
+        "prompt_lengths": list(prompts), "steps": eng.steps,
+        "drains_steps_per_s": [a for a, _ in rates[1:]],
+        "warm_up_steps_per_s": rates[0][0],
+        "steps_per_s": _quartiles([a for a, _ in rates[1:]])[0],
+        "tokens_per_s": _quartiles([b for _, b in rates[1:]])[0],
+        "peak_cuda_memory_bytes": torch.cuda.max_memory_allocated(dev)
+        if dev.type == "cuda" else None,
+        "decode_step": {"ms": ms, **_busy(torch, decode, ms, n=2)}}
+    return out
+
+
+def phase_families(torch, ops, ref, tcl, dev, card, gemma=None, moe=None):
+    """Phase 13: (a) ``phase_eq3``, (b) ``phase_reduced_archs``,
+    (c) ``phase_gemma2``, (d) ``phase_moe``. ``gemma``/``moe`` are keyword
+    overrides of (c) and (d) (the CPU rehearsal passes reduced
+    configs and short prompts). Returns the launches of (a) and (c)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()   # (c) and (d) take 27–53 GB in large blocks
+    path = {k: 0 for k in ops.launch_counts()}
+    on_path = _on_path(ops, path)
+    t0 = time.perf_counter()
+    eq3 = phase_eq3(torch, ops, dev, card, on_path)
+    _line({"phase": "families_eq3", "tiles": eq3,
+           "seconds": time.perf_counter() - t0, "card": card})
+    t0 = time.perf_counter()
+    reduced = phase_reduced_archs(torch, dev, card)
+    _line({"phase": "families_reduced", "archs": reduced,
+           "seconds": time.perf_counter() - t0, "card": card})
+    t0 = time.perf_counter()
+    g = phase_gemma2(torch, ops, ref, tcl, dev, card, on_path,
+                     **(gemma or {}))
+    torch.cuda.empty_cache()
+    _line({"phase": "families_gemma2", **g,
+           "seconds": time.perf_counter() - t0, "card": card})
+    t0 = time.perf_counter()
+    m = phase_moe(torch, dev, card, **(moe or {}))
+    torch.cuda.empty_cache()
+    _line({"phase": "families_moe", **m,
+           "seconds": time.perf_counter() - t0, "card": card})
+    _line({"phase": "families", "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return path
+
+
 def main() -> int:
     try:
         import torch
@@ -2627,11 +3202,12 @@ def main() -> int:
         lm_launches = phase_lm(torch, ops, ref, tcl, dev, card)
         train_launches = phase_train(torch, ops, ref, tcompile, tq, tcl,
                                      chip_mod, var, dev, card)
+        family_launches = phase_families(torch, ops, ref, tcl, dev, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
                           fleet_launches, rank_launches, deploy_launches,
-                          lm_launches, train_launches):
+                          lm_launches, train_launches, family_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -2,9 +2,10 @@
 §IV.B and the published Tables II–VI) and the architecture registry
 (``--arch <id>`` → :class:`ModelConfig`).
 
-The registry lists the ported architectures only. The reference's other
-architectures (moe, ssm, hybrid and the other dense configs) are ROADMAP
-Queue 1 item 9: asking for one raises ``KeyError`` naming it.
+The registry lists the ported architectures only: the dense, vlm,
+audio and moe configs. The reference's hybrid (zamba2) and ssm (xlstm)
+architectures are ROADMAP Queue 1 item 9: asking for one raises
+``KeyError`` naming it.
 """
 from __future__ import annotations
 
@@ -20,13 +21,18 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _ARCH_MODULES: Dict[str, str] = {
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1p5_0p5b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
 }
 
 # the reference's registry entries that are not ported yet
-_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m", "internvl2-26b",
-               "musicgen-large", "moonshot-v1-16b-a3b", "dbrx-132b",
-               "granite-3-8b", "gemma2-9b", "deepseek-7b")
+_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m")
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 

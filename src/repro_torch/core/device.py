@@ -28,6 +28,11 @@ SWITCH_TIME_S = 80e-9          # full-range switch
 SWITCH_VOLT = 4.25
 DEVICE_BITS = 7                # achievable per-device precision [20]
 
+# Yakopcic model parameters used for Fig. 10 (recorded for provenance;
+# the transfer characteristics above are what the system model consumes).
+YAKOPCIC_PARAMS = dict(Vp=4.0, Vn=4.0, Ap=816000.0, An=816000.0,
+                       xp=0.9897, xn=0.9897, ap=0.2, an=0.2)
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceModel:

@@ -2,7 +2,7 @@
 
 Port of ``repro.lm.compile``. Every matmul of a dense transformer block
 — the seven per-layer linears wq/wk/wv/wo (attention) and w1/w3/w2
-(SwiGLU FFN) — is programmed onto tile grids through the SAME
+(the gated FFN: SwiGLU, or GeGLU for gemma2) — is programmed onto tile grids through the SAME
 ``program_layer`` → ``StreamLayer`` pipeline that maps the sensor MLPs,
 while everything a crossbar cannot express (rms-norm, rotary embedding,
 softmax attention, residuals, KV-cache surgery, the tied LM head) stays

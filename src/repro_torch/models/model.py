@@ -73,8 +73,9 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Params:
 
 
 def params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Params:
-    """The reference's transformer parameter tree (numpy arrays, or
-    anything ``np.asarray`` takes, under the same keys) → the port's, in
+    """The reference's transformer parameter tree, dense or MoE (numpy
+    arrays, or anything ``np.asarray`` takes, under the same keys) → the
+    port's, in
     ``cfg.param_dtype`` on ``device`` (default ``cuda``). The layouts are
     the same, so this is the identity on shapes; the parity tests use it,
     the serving path does not."""
@@ -152,9 +153,10 @@ def forward(cfg, params, batch, mode: str = "train",
 
 def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict]:
     """Training loss: cross-entropy of the head's logits against
-    ``batch["labels"]`` (labels < 0 masked out), plus the router's
-    auxiliary loss where a stack reports one (MoE; no ported stack
-    does yet). Returns (loss, metrics)."""
+    ``batch["labels"]`` (labels < 0 masked out), plus
+    ``router_aux_weight`` × the router's auxiliary loss where the stack
+    reports one (MoE: ``moe_aux`` and ``moe_drop`` in the metrics, both
+    summed over the layers). Returns (loss, metrics)."""
     h, _, aux = forward(cfg, params, batch, mode="train")
     logits = _head(cfg, params, h)
     loss, acc = cross_entropy(logits, torch.as_tensor(batch["labels"]),
@@ -198,12 +200,21 @@ def init_cache(cfg, batch: int, cache_len: int,
 # --------------------------------------------------------------------- #
 def count_params(cfg, active_only: bool = False) -> int:
     """The leaves :func:`init_params` would make, counted from the
-    config (``active_only`` matters for MoE configs only, which are not
-    ported: :func:`transformer.get_stack` raises for them)."""
+    config (the reference counts an ``eval_shape`` of its init; the
+    totals are equal). ``active_only`` counts, of each MoE layer's
+    experts, only the ``top_k`` a token visits (the shared experts and
+    the router stay counted), as the reference does. The hybrid and
+    ssm families are not ported (ROADMAP Queue 1 item 9):
+    :func:`transformer.get_stack` raises for them."""
     tf.get_stack(cfg)
     d, H, KH, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    block = (d * H * dh + 2 * d * KH * dh + H * dh * d
-             + 3 * d * cfg.d_ff + 2 * d)
+    block = d * H * dh + 2 * d * KH * dh + H * dh * d + 2 * d
+    if cfg.family == "moe":
+        E, f = cfg.num_experts, cfg.d_ff
+        block += d * E + 3 * E * d * f
+        block += 3 * d * f * cfg.num_shared_experts
+    else:
+        block += 3 * d * cfg.d_ff
     if cfg.qkv_bias:
         block += H * dh + 2 * KH * dh
     if cfg.post_block_norm:
@@ -211,6 +222,9 @@ def count_params(cfg, active_only: bool = False) -> int:
     total = cfg.padded_vocab * d + cfg.num_layers * block + d
     if not cfg.tie_embeddings:
         total += d * cfg.padded_vocab
+    if active_only and cfg.num_experts:
+        per_expert = 3 * cfg.d_model * cfg.d_ff
+        total -= cfg.num_layers * (cfg.num_experts - cfg.top_k) * per_expert
     return int(total)
 
 

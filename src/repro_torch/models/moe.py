@@ -1,0 +1,223 @@
+"""Top-k token-choice MoE with sort-based capacity dispatch.
+
+Port of ``repro.models.moe``. The usual one-hot dispatch einsum
+(GShard) materializes a (tokens × experts × capacity) tensor; instead
+the (token, choice) assignments are sorted by expert id and each
+expert's first C tokens are gathered into a dense (E, C, d) block, so
+compute scales with the active FLOPs (tokens · top_k · d · f). Overflow
+assignments are dropped in token order (capacity-factor semantics) and
+counted in the aux metrics.
+
+The reference's semantics, kept exactly:
+  * the router's softmax over all experts in f32 (the logits
+    accumulate in f32 whatever the compute dtype);
+  * top-k, then the k gates renormalised to sum to one;
+  * the Switch load-balance loss on the top-1 choice,
+    E · Σ_e mean_prob_e · frac_tokens_e;
+  * a STABLE argsort of the flattened (token, choice) expert ids, so
+    an expert's slots fill in token order;
+  * capacity ``max(8, round_up(int(round(T·k/E·cf)), 8))`` with
+    Python's ``round`` (half to even);
+  * the segment-sum combine (an ``index_add`` into T + 1 rows, the
+    last taking the dropped slots);
+  * the shared experts added outside the routing;
+  * the grouped path (GShard's G axis) taken only when
+    ``moe_groups > 1`` and the token count divides by it.
+
+Top-k is a stable descending sort cut to k: on tied probabilities it
+keeps the lower expert index first, as ``jax.lax.top_k`` does
+(``torch.topk`` does not promise an order on ties).
+
+The reference's ``shard(...)`` constraints do nothing without a mesh;
+they belong to the sharding slice (ROADMAP Queue 1 item 9e) and are
+left out here, as is ``moe_specs``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from repro_torch.models.layers import act_fn, dense_init
+
+# the generator order of ``moe_init``'s leaves
+MOE_LEAVES = ("router", "w1", "w3", "w2", "shared_w1", "shared_w3",
+              "shared_w2")
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def moe_init(generators: Sequence[torch.Generator], cfg,
+             dtype: torch.dtype, *, device: torch.device) -> Dict:
+    """``generators``: one ``torch.Generator`` a leaf, in the order of
+    ``MOE_LEAVES`` (the shared ones are used when the config has shared
+    experts). Layouts as the reference's: router (d, E), w1/w3
+    (E, d, f), w2 (E, f, d), shared w1/w3 (d, f·n_shared), w2
+    (f·n_shared, d)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    g = dict(zip(MOE_LEAVES, generators))
+    p = {
+        "router": dense_init(g["router"], (d, E), dtype, fan_in=d,
+                             device=device),
+        "w1": dense_init(g["w1"], (E, d, f), dtype, fan_in=d, device=device),
+        "w3": dense_init(g["w3"], (E, d, f), dtype, fan_in=d, device=device),
+        "w2": dense_init(g["w2"], (E, f, d), dtype, fan_in=f, device=device),
+    }
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        p["shared"] = {
+            "w1": dense_init(g["shared_w1"], (d, fs), dtype, device=device),
+            "w3": dense_init(g["shared_w3"], (d, fs), dtype, device=device),
+            "w2": dense_init(g["shared_w2"], (fs, d), dtype, fan_in=fs,
+                             device=device),
+        }
+    return p
+
+
+def capacity(tokens: int, cfg) -> int:
+    c = int(round(tokens * cfg.top_k / cfg.num_experts * cfg.capacity_factor))
+    return max(8, _round_up(c, 8))
+
+
+# --------------------------------------------------------------------- #
+# routing and dispatch (the steps the token and grouped paths share)
+# --------------------------------------------------------------------- #
+def route(p: Dict, cfg, x: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (..., T, d) → (probs (..., T, E) f32, renormalised gates
+    (..., T, K) f32, expert ids (..., T, K) int64, best first)."""
+    f32 = torch.float32
+    logits = torch.matmul(x.to(f32), p["router"].to(x.dtype).to(f32))
+    probs = torch.softmax(logits, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = vals[..., :cfg.top_k], ids[..., :cfg.top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, ids
+
+
+def dispatch(expert_ids: torch.Tensor, E: int, C: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., T, K) expert ids → (flat slot ids (..., E, C) into the
+    flattened T·K assignments, valid (..., E, C)): each expert's first
+    C assignments in token order. Invalid slots point at assignment 0."""
+    lead = expert_ids.shape[:-2]
+    flat_e = expert_ids.reshape(*lead, -1)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, order).contiguous()
+    ar = torch.arange(E, dtype=sorted_e.dtype, device=sorted_e.device)
+    ar = ar.expand(*lead, E).contiguous()
+    starts = torch.searchsorted(sorted_e, ar, side="left")
+    counts = torch.searchsorted(sorted_e, ar, side="right") - starts
+    cs = torch.arange(C, dtype=starts.dtype, device=starts.device)
+    valid = cs < counts[..., None]                            # (..., E, C)
+    slot = torch.where(valid, starts[..., None] + cs, 0)
+    flat_slot = torch.gather(order, -1, slot.reshape(*lead, E * C))
+    return flat_slot.reshape(*lead, E, C), valid
+
+
+def _experts(p: Dict, cfg, x_e: torch.Tensor) -> torch.Tensor:
+    """(..., E, C, d) gathered tokens through each expert's GLU MLP."""
+    dt = x_e.dtype
+    h = torch.matmul(x_e, p["w1"].to(dt))
+    g = torch.matmul(x_e, p["w3"].to(dt))
+    h = act_fn(cfg.act)(h) * g
+    return torch.matmul(h, p["w2"].to(dt))
+
+
+def moe_apply(p: Dict, cfg, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (y, aux). Aux carries the load-balance loss
+    (``aux_loss``) and the share of dropped assignments
+    (``drop_frac``), f32 scalars.
+
+    With ``cfg.moe_groups = G > 1`` (and B·S divisible by G) the
+    tokens are split into G local-dispatch groups: routing, capacity
+    and combine stay inside a group."""
+    dt = x.dtype
+    B, S, d = x.shape
+    G = max(cfg.moe_groups, 1)
+    T = B * S
+    if G > 1 and T % G == 0:
+        y, aux = _moe_grouped(p, cfg, x.reshape(G, T // G, d))
+    else:
+        y, aux = _moe_tokens(p, cfg, x.reshape(T, d))
+    y = y.reshape(B, S, d)
+
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        hs = act_fn(cfg.act)(torch.matmul(x, sh["w1"].to(dt)))
+        hs = hs * torch.matmul(x, sh["w3"].to(dt))
+        y = y + torch.matmul(hs, sh["w2"].to(dt))
+    return y, aux
+
+
+def _moe_tokens(p: Dict, cfg, xt: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Route one token group. xt: (T, d) -> (y (T, d), aux)."""
+    dt = xt.dtype
+    T, d = xt.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = capacity(T, cfg)
+
+    probs, gate_vals, expert_ids = route(p, cfg, xt)
+    # load-balance aux (Switch): E * mean(frac_tokens_e * mean_prob_e)
+    me = probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(expert_ids[:, 0], E).to(
+        torch.float32).mean(dim=0)
+    aux_loss = E * torch.sum(me * ce)
+
+    flat_slot, valid = dispatch(expert_ids, E, C)             # (E, C)
+    token_ids = flat_slot // K
+    choice = flat_slot % K
+    gates_ec = gate_vals[token_ids.reshape(-1), choice.reshape(-1)]
+    gates_ec = (gates_ec.reshape(E, C) * valid).to(torch.float32)
+
+    x_e = xt[token_ids.reshape(-1)].reshape(E, C, d)
+    y_e = _experts(p, cfg, x_e) * gates_ec[..., None].to(dt)
+
+    # combine: invalid slots land in row T, which is dropped
+    seg = torch.where(valid, token_ids, T).reshape(-1)
+    y = torch.zeros((T + 1, d), dtype=torch.float32, device=xt.device)
+    y = y.index_add(0, seg, y_e.reshape(E * C, d).to(torch.float32))
+    y = y[:T].to(dt)
+
+    dropped = 1.0 - valid.sum() / max(T * K, 1)
+    return y, {"aux_loss": aux_loss, "drop_frac": dropped.to(torch.float32)}
+
+
+def _moe_grouped(p: Dict, cfg, xg: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Local-dispatch MoE with an explicit group axis. xg: (G, Tg, d).
+    Routing, capacity gather and combine are per group; the combine
+    sums in the compute dtype, as the reference's does."""
+    dt = xg.dtype
+    G, Tg, d = xg.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = capacity(Tg, cfg)
+
+    probs, gate_vals, expert_ids = route(p, cfg, xg)          # (G, Tg, ·)
+    me = probs.mean(dim=1)                                    # (G, E)
+    ce = torch.nn.functional.one_hot(expert_ids[:, :, 0], E).to(
+        torch.float32).mean(dim=1)
+    aux_loss = E * torch.sum(me * ce, dim=-1).mean()
+
+    flat_slot, valid = dispatch(expert_ids, E, C)             # (G, E, C)
+    token_ids = flat_slot // K
+    choice = flat_slot % K
+    g_idx = torch.arange(G, device=xg.device)[:, None]
+    gates_ec = gate_vals[g_idx, token_ids.reshape(G, -1),
+                         choice.reshape(G, -1)].reshape(G, E, C) * valid
+
+    x_e = xg[g_idx, token_ids.reshape(G, -1)].reshape(G, E, C, d)
+    y_e = _experts(p, cfg, x_e) * gates_ec[..., None].to(dt)
+
+    seg = torch.where(valid, token_ids, Tg) + \
+        (Tg + 1) * torch.arange(G, device=xg.device)[:, None, None]
+    y = torch.zeros((G * (Tg + 1), d), dtype=dt, device=xg.device)
+    y = y.index_add(0, seg.reshape(-1), y_e.reshape(G * E * C, d))
+    y = y.reshape(G, Tg + 1, d)[:, :Tg]
+
+    dropped = 1.0 - valid.sum() / max(G * Tg * K, 1)
+    return y, {"aux_loss": aux_loss, "drop_frac": dropped.to(torch.float32)}

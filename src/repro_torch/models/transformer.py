@@ -1,6 +1,7 @@
-"""The dense transformer block stack.
+"""The dense and MoE transformer block stacks.
 
-Port of the dense half of ``repro.models.transformer``. Parameters are
+Port of the dense/vlm/audio and moe stacks of
+``repro.models.transformer``. Parameters are
 stacked along a leading layer axis, as the reference's scan stacks
 them; a Python loop over the layers replaces the scan. In train mode
 each block is rematerialised as ``cfg.remat`` says, as the reference
@@ -21,7 +22,13 @@ Stack API, as the reference's:
   apply(p, cfg, h, positions, mode, cache)       -> (h, new_cache, aux)
   init_cache(cfg, batch, cache_len, dtype, device) -> cache
 
-The moe, ssm, hybrid and xlstm stacks are ROADMAP Queue 1 item 9:
+``aux`` accumulates by summation over the layers, in every mode (the
+reference's ``scan_stack``): the MoE stack starts it at zero
+``aux_loss`` and ``drop_frac``, so ``drop_frac`` is a sum over layers,
+not a share (reports divide it by the layer count); the dense stack's
+is empty.
+
+The hybrid (zamba2) and ssm (xlstm) stacks are ROADMAP Queue 1 item 9:
 ``get_stack`` raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
@@ -33,9 +40,11 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import mlp_apply, mlp_init, pdtype, rms_norm
 
-# one generator per parameter leaf of a block, keyed by these codes
+# one generator per parameter leaf of a block, keyed by these codes; an
+# MoE block's MLP leaves take the codes after them (``moe.MOE_LEAVES``)
 _LEAVES = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
 
@@ -47,18 +56,25 @@ def layer_slice(tree, layer: int):
 
 
 def _block_init(generator: Callable[[int], torch.Generator], cfg,
-                device: torch.device) -> Dict:
-    """``generator(i)``: the ``torch.Generator`` of leaf ``_LEAVES[i]``."""
+                device: torch.device, use_moe: bool = False) -> Dict:
+    """``generator(i)``: the ``torch.Generator`` of leaf ``_LEAVES[i]``
+    (of ``moe.MOE_LEAVES[i - len(_LEAVES)]`` for an MoE block's MLP)."""
     d = cfg.d_model
     dt = pdtype(cfg)
-    gens = [generator(i) for i in range(len(_LEAVES))]
     p = {
-        "attn": attn.attn_init(gens[:4], cfg, dt, device=device),
+        "attn": attn.attn_init([generator(i) for i in range(4)], cfg, dt,
+                               device=device),
         "attn_norm": torch.ones((d,), dtype=dt, device=device),
         "mlp_norm": torch.ones((d,), dtype=dt, device=device),
-        "mlp": mlp_init((gens[4], gens[5], gens[6]), d, cfg.d_ff, dt,
-                        device=device),
     }
+    if use_moe:
+        p["mlp"] = moe_mod.moe_init(
+            [generator(len(_LEAVES) + j)
+             for j in range(len(moe_mod.MOE_LEAVES))], cfg, dt,
+            device=device)
+    else:
+        p["mlp"] = mlp_init([generator(i) for i in (4, 5, 6)], d, cfg.d_ff,
+                            dt, device=device)
     if cfg.post_block_norm:
         p["attn_post"] = torch.ones((d,), dtype=dt, device=device)
         p["mlp_post"] = torch.ones((d,), dtype=dt, device=device)
@@ -66,7 +82,7 @@ def _block_init(generator: Callable[[int], torch.Generator], cfg,
 
 
 def _block_apply(p, cfg, h, *, positions, mode, cache, window,
-                 project=None, mlp_fn=None):
+                 use_moe=False, project=None, mlp_fn=None):
     """project/mlp_fn: optional linear-projection overrides (see
     ``attention.attn_apply``); ``repro_torch.lm`` substitutes
     crossbar-mapped tile grids for the block's seven matmuls while
@@ -81,13 +97,16 @@ def _block_apply(p, cfg, h, *, positions, mode, cache, window,
     h = h + a_out
 
     m_in = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    if mlp_fn is not None:
+    aux = {}
+    if use_moe:
+        m_out, aux = moe_mod.moe_apply(p["mlp"], cfg, m_in)
+    elif mlp_fn is not None:
         m_out = mlp_fn(p["mlp"], m_in)
     else:
         m_out = mlp_apply(p["mlp"], m_in, cfg.act, m_in.dtype)
     if cfg.post_block_norm:
         m_out = rms_norm(m_out, p["mlp_post"], cfg.norm_eps)
-    return h + m_out, new_cache, {}
+    return h + m_out, new_cache, aux
 
 
 def _save_plain_matmuls(ctx, op, *args, **kwargs):
@@ -98,7 +117,7 @@ def _save_plain_matmuls(ctx, op, *args, **kwargs):
 
 
 def _remat(fn: Callable, cfg, mode: str) -> Callable:
-    """``fn(h) -> h`` rematerialised per ``cfg.remat`` in train mode."""
+    """``fn(h) -> out`` rematerialised per ``cfg.remat`` in train mode."""
     if mode != "train" or cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
@@ -134,12 +153,14 @@ def stack_caches(caches):
 
 
 class DenseStack:
+    use_moe = False
+
     @classmethod
     def init(cls, generator: Callable[..., torch.Generator], cfg,
              device: torch.device) -> Dict:
         """``generator(layer, leaf)`` → that leaf's ``torch.Generator``."""
         layers = [_block_init(lambda i, _l=layer: generator(_l, i), cfg,
-                              device)
+                              device, cls.use_moe)
                   for layer in range(cfg.num_layers)]
         return _stack_trees(layers)
 
@@ -147,22 +168,25 @@ class DenseStack:
     def apply(cls, p, cfg, h, *, positions, mode,
               cache: Optional[Dict] = None):
         windows = _layer_windows(cfg)
-        if mode == "train":
-            for layer in range(cfg.num_layers):
-                def block(h, p_l=layer_slice(p, layer), w=windows[layer]):
-                    return _block_apply(p_l, cfg, h, positions=positions,
-                                        mode=mode, cache=None, window=w)[0]
-                h = _remat(block, cfg, mode)(h)
-            return h, None, {}
+        aux = {"aux_loss": torch.zeros((), device=h.device),
+               "drop_frac": torch.zeros((), device=h.device)} \
+            if cls.use_moe else {}
         caches = []
         for layer in range(cfg.num_layers):
-            h, c_new, _ = _block_apply(
-                layer_slice(p, layer), cfg, h, positions=positions,
-                mode=mode,
-                cache=None if cache is None else layer_slice(cache, layer),
-                window=windows[layer])
-            caches.append(c_new)
-        return h, stack_caches(caches), {}
+            def block(h, p_l=layer_slice(p, layer), w=windows[layer],
+                      c_l=None if cache is None else
+                      layer_slice(cache, layer)):
+                return _block_apply(p_l, cfg, h, positions=positions,
+                                    mode=mode, cache=c_l, window=w,
+                                    use_moe=cls.use_moe)
+            if mode == "train":
+                h, a = _remat(lambda h, f=block: _drop_cache(f(h)), cfg,
+                              mode)(h)
+            else:
+                h, c_new, a = block(h)
+                caches.append(c_new)
+            aux = {k: v + a[k] for k, v in aux.items()}
+        return h, stack_caches(caches), aux
 
     @classmethod
     def init_cache(cls, cfg, batch: int, cache_len: int,
@@ -171,6 +195,16 @@ class DenseStack:
         return {k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
                                dtype=v.dtype, device=device)
                 for k, v in one.items()}
+
+
+class MoEStack(DenseStack):
+    use_moe = True
+
+
+def _drop_cache(out):
+    """A train-mode block's (h, cache, aux) without the (absent) cache."""
+    h, _, aux = out
+    return h, aux
 
 
 def _stack_trees(trees):
@@ -182,8 +216,10 @@ def _stack_trees(trees):
 def get_stack(cfg):
     if cfg.family in ("dense", "vlm", "audio"):
         return DenseStack
-    if cfg.family in ("moe", "hybrid", "ssm"):
+    if cfg.family == "moe":
+        return MoEStack
+    if cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the moe/ssm/hybrid/xlstm stacks are "
-            f"not ported yet (ROADMAP Queue 1 item 9)")
+            f"family {cfg.family!r}: the hybrid (mamba2) and ssm (xlstm) "
+            f"stacks are not ported yet (ROADMAP Queue 1 item 9)")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -38,12 +38,16 @@ def _device_of(params) -> torch.device:
 def value_and_grad(cfg, params, batch) -> Tuple[Dict, object]:
     """(metrics, grads): the loss's metrics (detached) and the gradient
     of the loss with respect to every parameter leaf, in the
-    parameters' structure."""
+    parameters' structure. A leaf the loss does not reach (the token
+    table under a batch of frontend ``embeds``) gets a zero gradient,
+    as ``jax.grad`` gives it."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, metrics = model_lib.loss_fn(cfg, live, batch)
-    grads = torch.autograd.grad(loss, leaves(live))
+    grads = torch.autograd.grad(loss, leaves(live), allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves(live), grads)]
     return ({k: v.detach() for k, v in metrics.items()},
-            unflatten_like(params, list(grads)))
+            unflatten_like(params, grads))
 
 
 def make_train_step(cfg, optimizer, *, global_batch: int, dp: int = 1

@@ -667,3 +667,125 @@ def test_gpu_resume_on_the_card_holds(cuda, tmp_path):
                     leaves((resumed["params"], resumed["opt_state"]))):
         assert a.device.type == b.device.type == "cuda"
         assert _rel(b.cpu(), a.cpu()) <= 1e-6
+
+
+# ---------------- the Eq. 3 model and the other families --------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_seg", [0.0, 2.5], ids=["ideal", "wire_r"])
+@pytest.mark.parametrize("rows,cols", [(128, 64), (256, 128)])
+def test_gpu_eq3_equals_the_cpu(cuda, rows, cols, r_seg):
+    """``eq3_dot_product``, ``effective_weights`` and
+    ``crossbar_forward`` on CUDA tensors against the CPU's, rel ≤ 1e-6
+    (IEEE f32 summed in another order), on one tile and a stack of 3."""
+    from repro_torch.core import crossbar as tcb
+    rng = np.random.default_rng(rows + cols)
+    x = rng.uniform(-1, 1, (3, 512, rows)).astype(np.float32)
+    w = (rng.standard_normal((3, rows, cols)) * 0.2).astype(np.float32)
+    for xs, ws in ((x[0], w[0]), (x, w)):
+        xc, wc = torch.from_numpy(xs), torch.from_numpy(ws)
+        gp, gn, _ = tcb.pairs_from_weights(wc)
+        for fn in (lambda x, w, gp, gn: tcb.eq3_dot_product(x, gp, gn, r_seg),
+                   lambda x, w, gp, gn: tcb.effective_weights(gp, gn, r_seg),
+                   lambda x, w, gp, gn: tcb.crossbar_forward(x, w,
+                                                             r_seg=r_seg)):
+            want = fn(xc, wc, gp, gn)
+            got = fn(*(t.to(cuda) for t in (xc, wc, gp, gn)))
+            assert got.device.type == "cuda"
+            assert _rel(got.cpu(), want) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(128, 64), (256, 128)])
+def test_gpu_k1_with_the_column_gain_equals_eq3(cuda, rows, cols):
+    """K1 on one tile's programmed pairs (R = 1, scale = 1/column_gain)
+    is Eq. 3 (rel ≤ 1e-5: 3×TF32), and with the threshold epilogue and a
+    positive per-column gain it gives Eq. 3's signs outside the band."""
+    from repro_torch.core import crossbar as tcb
+    rng = np.random.default_rng(cols)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4096, rows)).astype(
+        np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((rows, cols)) * 0.2).astype(
+        np.float32)).to(cuda)
+    gp, gn, _ = tcb.pairs_from_weights(w)
+    gain = tcb.column_gain(gp, gn)
+    dp = tcb.eq3_dot_product(x, gp, gn)
+    ops.reset_launch_counts()
+    k1 = ops.crossbar_mvm(x[:, None, :], gp[None, None].contiguous(),
+                          gn[None, None].contiguous(),
+                          (1.0 / gain)[None, None].contiguous())
+    assert ops.launch_counts()["crossbar_mvm"] == 1
+    assert _rel(k1.cpu(), dp.cpu()) <= 1e-5
+    pos = torch.from_numpy(rng.uniform(0.2, 3.0, cols).astype(
+        np.float32)).to(cuda)
+    signs = ops.crossbar_mvm(x[:, None, :], gp[None, None].contiguous(),
+                             gn[None, None].contiguous(),
+                             (pos / gain)[None, None].contiguous(),
+                             activation="threshold")
+    clear = dp.abs() > BAND * dp.abs().max()
+    assert torch.equal(signs[clear], tq.threshold(dp)[clear])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [1.0, 8.0], ids=["drops", "drop_free"])
+def test_gpu_moe_tokens_equals_the_cpu(cuda, cf):
+    """The reduced moonshot's ``_moe_tokens`` on 96 tokens: the same
+    expert ids and kept slots on the card as on the CPU, aux_loss and
+    drop_frac rel ≤ 1e-6, y rel ≤ 1e-5."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as ttf
+    cfg = get_reduced("moonshot-v1-16b-a3b").replace(capacity_factor=cf)
+    p = ttf.layer_slice(model_lib.init_params(cfg, 0, device="cpu")
+                        ["stack"]["mlp"], 0)
+    pc = {k: (v.to(cuda) if torch.is_tensor(v) else
+              {kk: vv.to(cuda) for kk, vv in v.items()})
+          for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (96, cfg.d_model)).astype(np.float32))
+    C = tmoe.capacity(96, cfg)
+    _, _, ids = tmoe.route(p, cfg, x)
+    _, _, ids_c = tmoe.route(pc, cfg, x.to(cuda))
+    assert torch.equal(ids_c.cpu(), ids)
+    slot, valid = tmoe.dispatch(ids, cfg.num_experts, C)
+    slot_c, valid_c = tmoe.dispatch(ids_c, cfg.num_experts, C)
+    assert torch.equal(valid_c.cpu(), valid)
+    assert torch.equal(torch.where(valid_c, slot_c, -1).cpu(),
+                       torch.where(valid, slot, -1))
+    y, aux = tmoe._moe_tokens(p, cfg, x)
+    y_c, aux_c = tmoe._moe_tokens(pc, cfg, x.to(cuda))
+    assert _rel(y_c.cpu(), y) <= 1e-5
+    for k in aux:
+        assert _rel(aux_c[k].cpu(), aux[k]) <= 1e-6, k
+    assert (float(aux["drop_frac"]) > 0) == (cf == 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["memristor", "digital"])
+def test_gpu_reduced_gemma2_compile_lm_matches_dense(cuda, system):
+    """The reduced gemma2 (windows of 16 under a 24-token prompt,
+    softcaps, post-norms, GeGLU) through ``compile_lm``: every linear
+    through K1 (7 × 4 launches a forward), prefill and a per-slot decode
+    within rel ≤ 1e-5 of the dense forward on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.lm import TransformerParams, compile_lm
+    from repro_torch.models import model as model_lib
+    cfg = get_reduced("gemma2-9b").replace(compute_dtype="float32",
+                                           decode_per_slot=True)
+    params = model_lib.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(6)).to(cuda)
+    want, wcache = model_lib.prefill(cfg, params, {"tokens": toks})
+    clm = compile_lm(TransformerParams(cfg, params), system=system,
+                     device=cuda)
+    ops.reset_launch_counts()
+    got, cache = clm.prefill(toks)
+    assert ops.launch_counts()["crossbar_mvm"] == 7 * 4
+    assert _rel(got.cpu(), want.cpu()) <= 1e-5
+    grow = lambda c: {k: torch.nn.functional.pad(  # noqa: E731
+        v, [0, 0, 0, 0, 0, 4]) for k, v in c.items()}
+    step = toks[:, :1]
+    pos = torch.tensor([24, 20], dtype=torch.int32, device=cuda)
+    want_d, _ = model_lib.decode_step(cfg, params, grow(wcache), step, pos)
+    got_d, _ = clm.decode(grow(cache), step, pos)
+    assert _rel(got_d.cpu(), want_d.cpu()) <= 1e-5

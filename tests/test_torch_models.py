@@ -112,11 +112,11 @@ def test_qwen_config_equals_the_reference():
 
 def test_registry_names_the_queue_item_for_unported_archs():
     with pytest.raises(KeyError, match="item 9"):
-        tconfigs.get_config("gemma2-9b")
+        tconfigs.get_config("zamba2-1.2b")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_reduced("no-such-arch")
     with pytest.raises(NotImplementedError, match="item 9"):
-        ttf.get_stack(tqwen.reduced().replace(family="moe"))
+        ttf.get_stack(tqwen.reduced().replace(family="hybrid"))
 
 
 @pytest.mark.parametrize("cfg_kw", [{}, {"tie_embeddings": False},

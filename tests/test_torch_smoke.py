@@ -428,3 +428,65 @@ def test_smoke_train_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
     assert launches["int8_matmul_fused"] == 3 + 3
     assert launches["crossbar_mvm"] == 3 + 3 + 2 * 3 + 2 * 21 + \
         served["serving"]["launches"]["crossbar_mvm"]
+
+
+def test_smoke_families_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
+    """Phase 13 on the CPU, cut to size: Eq. 3 against K1's plain version
+    on both tile geometries (64 inputs), the seven reduced archs, a
+    2-layer reduced gemma2 (a 24-token prompt past its 16-token window,
+    3 decode steps) through compile_lm on both systems with 7 × 2
+    launches a forward and tokens equal to the dense Engine's, and the
+    reduced moonshot at capacity factor 1.25 (drops), its dispatch
+    against the per-token loop and the Engine's drains."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import crossbar_layer as tcl
+    from repro_torch.kernels import ref
+    smoke, ops = cpu_smoke
+    monkeypatch.setattr(smoke, "EQ3_B", 64)
+    monkeypatch.setattr(smoke, "SERVE_DRAINS", 1)
+    monkeypatch.setattr(smoke, "_time_ms",
+                        lambda torch, fn, iters=20, warmup=3: 2.0)
+    monkeypatch.setattr(smoke, "_device_ms",
+                        lambda torch, fn, iters=20, warmup=3: 1.0)
+    monkeypatch.setattr(smoke, "_busy", lambda torch, fn, ms, n=5: {})
+    gemma = get_reduced("gemma2-9b").replace(num_layers=2)
+    moe = get_reduced("moonshot-v1-16b-a3b").replace(capacity_factor=1.25)
+    launches = smoke.phase_families(
+        torch, ops, ref, tcl, torch.device("cpu"), "cpu",
+        gemma=dict(cfg=gemma, prompt=24, new=3, shape_rows=(1, 24)),
+        moe=dict(cfg=moe, batch=(4, 32), loop_tokens=16,
+                 prompts=(3, 5, 8), new=4))
+    out = capsys.readouterr().out
+    lines = _phase_lines(out)
+    eq3 = lines["families_eq3"]["tiles"]
+    assert [(t["tile"], t["r_seg"]) for t in eq3] == [
+        ([128, 64], 0.0), ([128, 64], 2.5), ([256, 128], 0.0),
+        ([256, 128], 2.5)]
+    assert all(t["k1_vs_eq3_rel"] <= 1e-5 and
+               t["threshold_flips_outside_band"] == 0 for t in eq3)
+    assert set(lines["families_reduced"]["archs"]) == \
+        set(smoke.FAMILY_ARCHS)
+    g = lines["families_gemma2"]
+    assert g["dense_tokens"] == g["engine_tokens"] and \
+        g["full_attention_twin_rel"] > 1e-4
+    for system, geometry in (("memristor", "128x64"),
+                             ("digital", "256x128")):
+        res = g["systems"][system]
+        assert res["geometry"] == geometry
+        assert res["launches_per_forward"] == [14]
+        assert len(res["rel"]) == 4 and max(res["rel"]) <= 1e-6
+        assert res["tokens_equal_dense"] and \
+            res["served_tokens_equal_engine"]
+    m = lines["families_moe"]
+    assert m["prefill"]["drop_frac_per_layer"] > 0
+    assert m["dispatch_vs_loop"]["drop_frac"] == 0.0 and \
+        m["dispatch_vs_loop"]["rel"] <= 1e-5
+    assert m["decode_vs_prefill"]["rel"] < 0.02
+    assert m["serving"]["requests"] == 3
+    # the path: Eq. 3's two K1 launches a tile and wire setting, then
+    # each system's 1 + 3 forwards and its served drain
+    assert launches["crossbar_mvm"] == 2 * 4 + sum(
+        14 * 4 + g["systems"][s]["serving_launches"]
+        for s in ("memristor", "digital"))
+    assert launches["int8_matmul_fused"] == launches["int8_matmul_raw"] == 0
+    assert out.count('"lm_shape"') == 2 * 5 * 2
