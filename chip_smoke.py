@@ -160,10 +160,36 @@ Phases, each of which ends the run with a non-zero exit on failure:
      the dense ``Engine`` serving 6 prompts × 16 tokens on 4 lanes:
      steps/s, a decode step's wall, busy time and kernels, peak CUDA
      memory.
+ 14. state space: the hybrid (zamba2-1.2b: Mamba2 SSD blocks and one
+     shared attention block) and ssm (xlstm-350m: mLSTM and sLSTM)
+     families, plain PyTorch as the reference's are plain jnp (no
+     kernel launch): (a) both reduced archs against the CPU, as (b) of
+     phase 13; (b) zamba2-1.2b at its published width and depth (38
+     Mamba2 layers, d 2,048, 64 SSM heads × 64, state 64; the shared
+     block's window 4,096; f32, seed 0): layer 0's ``ssd_chunked`` on
+     4,160 tokens (16 chunks of 260) against its per-token recurrence
+     (rel ≤ 1e-5, outputs and final state), a 4,160-token prefill and
+     16 greedy decodes against one 4,176-token prefill (rel < 0.02, the
+     greedy picks equal to its argmaxes outside top-two gaps of 1e-5),
+     and ``Engine(slots=4, cache_len=128)`` serving 6 prompts of 8–48
+     tokens × 16, each request's tokens equal to its own B = 1 greedy
+     decode (steps/s, tokens/s, a decode step's wall, busy time and
+     kernels, peak memory); (c) xlstm-350m at its published width and
+     depth (24 layers = 3 × (7 mLSTM + 1 sLSTM), d 1,024): the same on
+     layer 0's ``mlstm_cell_chunked`` at 1,024 tokens, a 4 × 1,024
+     prefill and 16 decodes against a 4 × 1,040 prefill, the same
+     ``Engine`` drain; (d) both trained through
+     ``repro_torch.launch.train`` (global batch 8 × 512 tokens, the
+     configs' bf16 compute, remat and accumulation, AdamW): zamba2 2
+     steps with no checkpoint, xlstm 4 steps checkpointed every 2 in a
+     temporary directory, stopped after step 2 and resumed, equal to
+     the straight run to the bit; each step's loss and wall, a further
+     step's busy time and kernels, peak memory, xlstm's checkpoint
+     seconds and bytes.
 
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–13 (phase 9: what the ranks report; a
-killed rank reports nothing).
+(phases 2–3) and in phases 5–14 (phase 9: what the ranks report; a
+killed rank reports nothing; phase 14 launches none).
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -274,6 +300,25 @@ MOE_PROMPTS = (8, 16, 24, 32, 40, 48)
 MOE_NEW = 16
 MOE_LANES = 4
 MOE_CACHE = 128
+STATE_ARCHS = ("zamba2-1.2b", "xlstm-350m")   # phase 14
+STATE_CHUNK = 256       # the reference's scan chunk
+STATE_TOL = 1e-5        # a chunked scan against its per-token recurrence
+STATE_TIE = 1e-5        # the least top-two logit gap within which greedy
+#                         may flip (see _state_consistency)
+HYBRID_SCAN = 4160      # (b) zamba2's scan check: 16 chunks of 260
+HYBRID_BATCH = (1, 4160)    # a prompt past the shared block's 4,096 window
+SSM_SCAN = 1024         # (c) xlstm's: 4 chunks of 256
+SSM_BATCH = (4, 1024)
+STATE_NEW = 16          # greedy decodes; the long prefill adds as many
+STATE_PROMPTS = (8, 16, 24, 32, 40, 48)
+STATE_LANES = 4
+STATE_CACHE = 128
+HYBRID_TRAIN_ARGS = ["--arch", "zamba2-1.2b", "--steps", "2",
+                     "--global-batch", "8", "--seq-len", "512",
+                     "--ckpt-every", "0"]   # a checkpoint would be ~14 GB
+SSM_TRAIN_ARGS = ["--arch", "xlstm-350m", "--steps", "4", "--global-batch",
+                  "8", "--seq-len", "512", "--ckpt-every", "2"]
+SSM_RESUME_AT = 2       # the interrupted leg stops after its step-2 save
 
 
 class SmokeFailure(Exception):
@@ -562,27 +607,32 @@ def _device_busy(torch, chip, x, use_kernel: bool, wall_ms: float) -> dict:
 
 
 def _busy(torch, fn, wall_ms: float, n: int = 5) -> dict:
-    """``_device_busy`` of any call ``fn``, over ``n`` calls."""
+    """``_device_busy`` of any call ``fn``, over ``n`` calls. The
+    profiler records the card's activity only, and its raw events are
+    summed by name: a train step of 400 k kernels then costs seconds to
+    read, where ``key_averages`` over CPU and CUDA events took 260 s
+    (PR 22)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels) / n
-    if busy_us <= 0:
+    ns, count = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns[e.name()] = ns.get(e.name(), 0) + e.duration_ns()
+            count += 1
+    busy_ms = sum(ns.values()) / n / 1e6
+    if busy_ms <= 0:
         return {"device_busy_ms": "not measured",
                 "device_idle_share": "not measured"}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return {"device_busy_ms": busy_us / 1e3,
-            "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
-            "kernels_per_batch": sum(e.count for e in kernels) / n,
-            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / n / 1e3
-                               for e in top}}
+    top = sorted(ns, key=lambda k: -ns[k])[:5]
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernels_per_batch": count / n,
+            "top_kernels_ms": {k[:60]: ns[k] / n / 1e6 for k in top}}
 
 
 def _bound(nbytes: float, ops_: float, rate: float):
@@ -2412,11 +2462,12 @@ def _tree_rel(torch, got, want):
     return rel, equal
 
 
-def _train_legs(torch, launch_train, train_loop, args, root):
+def _train_legs(torch, launch_train, train_loop, args, root,
+                resume_at=TRAIN_RESUME_AT):
     """The straight run of ``args`` through ``launch_train.main``, then
     the same job in two legs: ``setup`` + ``train_loop.run`` stopped
-    after its step-``TRAIN_RESUME_AT`` checkpoint (an interruption),
-    and ``main`` again, which resumes from it. Returns the two runs'
+    after its step-``resume_at`` checkpoint (an interruption), and
+    ``main`` again, which resumes from it. Returns the two runs'
     outputs, the straight run's peak CUDA memory, both runs' per-step
     log records, the legs' checkpoint directory and the job's config,
     train step and pipeline."""
@@ -2434,8 +2485,7 @@ def _train_legs(torch, launch_train, train_loop, args, root):
     shutil.rmtree(dir_a)              # its state stays in memory
     leg = launch_train.setup(launch_train.parse_args(
         args + ["--ckpt-dir", dir_b]))
-    train_loop.run(dataclasses.replace(leg["loop"],
-                                       total_steps=TRAIN_RESUME_AT),
+    train_loop.run(dataclasses.replace(leg["loop"], total_steps=resume_at),
                    train_step=leg["train_step"], params=leg["params"],
                    opt_state=leg["opt_state"], pipeline=leg["pipeline"],
                    log_path=log_b)
@@ -2450,6 +2500,65 @@ def _train_legs(torch, launch_train, train_loop, args, root):
     with open(log_b) as f:
         recs_b = [json.loads(line) for line in f]
     return straight, resumed, peak, recs, recs_b, dir_b, kit
+
+
+def _timed_ckpt_io(torch, ckpt_lib, io):
+    """``ckpt_lib.save`` and ``restore`` wrapped to append each
+    publishing save's and each restore's seconds and bytes to ``io``."""
+    real_save, real_restore = ckpt_lib.save, ckpt_lib.restore
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        published = ckpt_lib.published_steps(ckpt_dir)
+        where = real_save(ckpt_dir, step, tree, **kw)
+        if step not in published:
+            io.append({"op": "save", "step": step,
+                       "seconds": time.perf_counter() - t0,
+                       "bytes": _dir_bytes(where)})
+        return where
+
+    def timed_restore(ckpt_dir, step, tree_like):
+        t0 = time.perf_counter()
+        got = real_restore(ckpt_dir, step, tree_like)
+        torch.cuda.synchronize()
+        io.append({"op": "restore", "step": step,
+                   "seconds": time.perf_counter() - t0,
+                   "bytes": _dir_bytes(os.path.join(
+                       ckpt_dir, f"step_{step:08d}"))})
+        return got
+
+    return timed_save, timed_restore
+
+
+def _resumed_legs(torch, launch_train, train_loop, args, root, tol,
+                  resume_at=TRAIN_RESUME_AT):
+    """``_train_legs``, and the resumed run held against the straight
+    one: where they differ by more than ``tol``, both run again with
+    PyTorch's deterministic algorithms (atomics off). Returns
+    ``_train_legs``' outputs, then the rel, whether every leaf is equal
+    to the bit, and whether deterministic algorithms were needed."""
+    legs = _train_legs(torch, launch_train, train_loop, args, root,
+                       resume_at)
+    rel, equal = _tree_rel(torch, (legs[1]["params"], legs[1]["opt_state"]),
+                           (legs[0]["params"], legs[0]["opt_state"]))
+    if rel <= tol:
+        return (*legs, rel, equal, False)
+    del legs
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        legs = _train_legs(torch, launch_train, train_loop, args,
+                           os.path.join(root, "deterministic"), resume_at)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    rel, equal = _tree_rel(torch, (legs[1]["params"], legs[1]["opt_state"]),
+                           (legs[0]["params"], legs[0]["opt_state"]))
+    return (*legs, rel, equal, True)
 
 
 def phase_train(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
@@ -2482,59 +2591,14 @@ def phase_train(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
     args = list(train_args or TRAIN_ARGS) + ["--log-every", "1"]
     io = []
     real_save, real_restore = ckpt_lib.save, ckpt_lib.restore
-
-    def timed_save(ckpt_dir, step, tree, **kw):
-        t0 = time.perf_counter()
-        published = ckpt_lib.published_steps(ckpt_dir)
-        where = real_save(ckpt_dir, step, tree, **kw)
-        if step not in published:
-            io.append({"op": "save", "step": step,
-                       "seconds": time.perf_counter() - t0,
-                       "bytes": _dir_bytes(where)})
-        return where
-
-    def timed_restore(ckpt_dir, step, tree_like):
-        t0 = time.perf_counter()
-        got = real_restore(ckpt_dir, step, tree_like)
-        torch.cuda.synchronize()
-        io.append({"op": "restore", "step": step,
-                   "seconds": time.perf_counter() - t0,
-                   "bytes": _dir_bytes(os.path.join(
-                       ckpt_dir, f"step_{step:08d}"))})
-        return got
-
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    ckpt_lib.save, ckpt_lib.restore = timed_save, timed_restore
+    ckpt_lib.save, ckpt_lib.restore = _timed_ckpt_io(torch, ckpt_lib, io)
     try:
         t0 = time.perf_counter()
-        straight, resumed, peak, recs, recs_b, dir_b, kit = _train_legs(
-            torch, launch_train, train_loop, args, root)
+        (straight, resumed, peak, recs, recs_b, dir_b, kit, rel, equal,
+         deterministic) = _resumed_legs(torch, launch_train, train_loop,
+                                        args, root, TRAIN_TOL)
         legs_s = time.perf_counter() - t0
-        rel, equal = _tree_rel(torch, (resumed["params"],
-                                       resumed["opt_state"]),
-                               (straight["params"], straight["opt_state"]))
-        deterministic = False
-        if rel > TRAIN_TOL:
-            # the straight and resumed runs differ: run both again with
-            # PyTorch's deterministic algorithms (atomics off)
-            env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-            torch.use_deterministic_algorithms(True)
-            deterministic = True
-            del straight, resumed
-            try:
-                straight, resumed, peak, recs, recs_b, dir_b, kit = \
-                    _train_legs(torch, launch_train, train_loop, args,
-                                os.path.join(root, "deterministic"))
-            finally:
-                torch.use_deterministic_algorithms(False)
-                if env is None:
-                    del os.environ["CUBLAS_WORKSPACE_CONFIG"]
-                else:
-                    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
-            rel, equal = _tree_rel(
-                torch, (resumed["params"], resumed["opt_state"]),
-                (straight["params"], straight["opt_state"]))
         _require(resumed["resumed_from"] == TRAIN_RESUME_AT,
                  f"resumed from {resumed['resumed_from']}")
         _require(rel <= TRAIN_TOL, f"resumed run vs straight run: rel "
@@ -2710,15 +2774,29 @@ def _np_batch(np, cfg, seed, B, S):
     return batch
 
 
-def _grow_ring(torch, cache, length):
-    """Pad every KV leaf's ring (axis 2) to ``length`` slots."""
-    return {k: torch.nn.functional.pad(
-        v, [0, 0] * (v.dim() - 3) + [0, length - v.shape[2]])
-        for k, v in cache.items()}
+def _grow_ring(torch, cfg, cache, length):
+    """Pad each attention ring of ``cache`` (its ring axis in the
+    stack's ``cache_axes``) to ``length`` slots; recurrent states (the
+    hybrid's Mamba2, xLSTM's) pass through, as the reference test's
+    ``_grow_ring`` passes them."""
+    from repro_torch.models import model as model_lib
+
+    def grow(c, axes):
+        if isinstance(c, dict):
+            return {k: grow(v, axes[k] if isinstance(axes, dict) else axes)
+                    for k, v in c.items()}
+        ring = axes[1]
+        if ring is None:
+            return c
+        return torch.nn.functional.pad(
+            c, [0, 0] * (c.dim() - 1 - ring) + [0, length - c.shape[ring]])
+    return grow(cache, model_lib.cache_axes(cfg))
 
 
-def phase_reduced_archs(torch, dev, card):
-    """(b) each new reduced arch on the card against the CPU on the same
+def phase_reduced_archs(torch, dev, card, archs=FAMILY_ARCHS):
+    """(b) each of ``archs`` (phase 13: the seven new reduced archs;
+    phase 14: the two state-space ones) on the card against the CPU on
+    the same
     seeded weights (f32 compute): the loss (rel ≤ 1e-5), each gradient
     leaf (rel ≤ 1e-4), the router's aux (rel ≤ 1e-6), one AdamW step
     (eps 1e-4, rel ≤ 1e-4), the prefill logits (rel ≤ 1e-5) and
@@ -2732,7 +2810,7 @@ def phase_reduced_archs(torch, dev, card):
     from repro_torch.train import steps
 
     out = {}
-    for arch in FAMILY_ARCHS:
+    for arch in archs:
         t0 = time.perf_counter()
         cfg = get_reduced(arch).replace(compute_dtype="float32")
         cpu_p = model_lib.init_params(cfg, 0, device="cpu")
@@ -2776,7 +2854,7 @@ def phase_reduced_archs(torch, dev, card):
         full_cpu, _ = model_lib.prefill(cfg, cpu_p, {"tokens": toks.cpu()})
         _, cache = model_lib.prefill(cfg, card_p, {"tokens": toks[:, :31]})
         dec, _ = model_lib.decode_step(cfg, card_p,
-                                       _grow_ring(torch, cache, 32),
+                                       _grow_ring(torch, cfg, cache, 32),
                                        toks[:, 31:], torch.tensor(31))
         res["prefill_rel"] = _rel(full.cpu(), full_cpu)
         res["decode_vs_prefill_rel"] = _rel(dec, full)
@@ -2837,7 +2915,7 @@ def phase_gemma2(torch, ops, ref, tcl, dev, card, on_path, cfg=None,
         and the run's greedy picks."""
         logits, cache = prefill()
         steps_, picks = [logits], [int(logits.argmax(-1))]
-        cache = _grow_ring(torch, cache, ring)
+        cache = _grow_ring(torch, cfg, cache, ring)
         for i in range(new):
             tok = torch.tensor([[(feed or picks)[i]]], device=dev)
             pos = torch.tensor([prompt + i], dtype=torch.int32, device=dev)
@@ -2919,7 +2997,7 @@ def phase_gemma2(torch, ops, ref, tcl, dev, card, on_path, cfg=None,
         res["parity_s"] = time.perf_counter() - t_sys - res["compile_s"]
 
         # one forward of each kind, timed: wall, busy time, kernels
-        cache = _grow_ring(torch, clm.prefill(toks)[1], ring)
+        cache = _grow_ring(torch, cfg, clm.prefill(toks)[1], ring)
         tok = torch.tensor([[dense_tokens[0]]], device=dev)
         pos = torch.tensor([prompt], dtype=torch.int32, device=dev)
         calls = {("decode", "mapped"): lambda: clm.decode(cache, tok, pos),
@@ -3052,7 +3130,7 @@ def phase_moe(torch, dev, card, cfg=None, batch=MOE_BATCH,
     full, _ = model_lib.prefill(roomy, params, {"tokens": ctoks})
     _, cache = model_lib.prefill(roomy, params, {"tokens": ctoks[:, :31]})
     dec, _ = model_lib.decode_step(roomy, params,
-                                   _grow_ring(torch, cache, 32),
+                                   _grow_ring(torch, roomy, cache, 32),
                                    ctoks[:, 31:], torch.tensor(31))
     out["decode_vs_prefill"] = {"capacity_factor": roomy.capacity_factor,
                                 "rel": _rel(dec, full)}
@@ -3138,6 +3216,358 @@ def phase_families(torch, ops, ref, tcl, dev, card, gemma=None, moe=None):
     return path
 
 
+# --------------------------------------------------------------------- #
+# phase 14: the state-space families — zamba2 (Mamba2 SSD) and xlstm
+# --------------------------------------------------------------------- #
+def _scan_check(torch, cfg, params, toks):
+    """Layer 0's chunked scan (the hybrid's ``ssd_chunked``, xLSTM's
+    ``mlstm_cell_chunked``) on the embedded ``toks``, against its own
+    per-token recurrence (the decode update, once a position): the rel
+    of the outputs and of the final state, and each form's seconds."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rms_norm
+
+    h = model_lib._embed_in(cfg, params, {"tokens": toks}, torch.float32)
+    g0 = tf.layer_slice(params["stack"]["groups"], 0)
+    if cfg.family == "hybrid":
+        x = rms_norm(h, g0["mamba_norm"][0], cfg.norm_eps)
+        ops = ssm.ssd_inputs(tf.layer_slice(g0["mamba"], 0), cfg, x)[4:]
+        forms = (lambda: ssm.ssd_chunked(*ops, STATE_CHUNK),
+                 lambda: ssm.ssd_recurrence(*ops))
+    else:
+        ops = xlstm.mlstm_inputs(tf.layer_slice(g0["mlstm"], 0), cfg,
+                                 h)[3:8]
+        forms = (lambda: xlstm.mlstm_cell_chunked(*ops, None, STATE_CHUNK),
+                 lambda: xlstm.mlstm_recurrence(*ops))
+    outs, seconds = [], []
+    for form in forms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(form())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    (y, state), (y_rec, state_rec) = outs
+    res = {"op": "ssd_chunked" if cfg.family == "hybrid" else
+           "mlstm_cell_chunked", "shape": list(toks.shape),
+           "chunks": ssm.chunk_geometry(toks.shape[1], STATE_CHUNK),
+           "y_rel": _rel(y, y_rec), "chunked_s": seconds[0],
+           "recurrence_s": seconds[1]}
+    if cfg.family == "hybrid":
+        res["state_rel"] = _rel(state, state_rec)
+    else:
+        # C and n are stored scaled by exp(-m): compare them at the
+        # recurrence's stabiliser
+        C, n = xlstm.restabilise(state, state_rec[2])
+        res["state_rel"] = max(_rel(C, state_rec[0]), _rel(n, state_rec[1]))
+    _require(res["y_rel"] <= STATE_TOL and res["state_rel"] <= STATE_TOL,
+             f"{cfg.name}: chunked scan vs its recurrence {res}")
+    return res
+
+
+def _state_consistency(torch, cfg, params, toks, new):
+    """Prefill ``toks`` (B, S), ``new`` greedy decode steps, then one
+    prefill of the S + ``new`` tokens: each step's logits against the
+    long prefill's at the same position (rel < 0.02), and the greedy
+    picks against its argmaxes. A pick may differ only where the long
+    prefill's top two logits are closer than the logits compared may
+    differ: within max(``STATE_TIE``, 2·max|decode − long|) at that
+    step. (xLSTM's cache holds the mLSTM state ``C`` in bf16, as the
+    reference's does, so its decode drifts from the f32 prefill by rel
+    ~1e-3 a step; the hybrid's state is f32, and its band is
+    ``STATE_TIE``'s or a few times it.) The count of picks that differ
+    where the gap is above ``STATE_TIE`` alone is reported too."""
+    from repro_torch.models import model as model_lib
+
+    B, S = toks.shape
+    t0 = time.perf_counter()
+    logits, cache = model_lib.prefill(cfg, params, {"tokens": toks})
+    steps_, picks = [logits], [logits.argmax(-1)]
+    for i in range(new):
+        logits, cache = model_lib.decode_step(
+            cfg, params, cache, picks[-1][:, None], torch.tensor(S + i))
+        steps_.append(logits)
+        picks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del cache
+    long = torch.cat([toks, torch.stack(picks[:new], 1)], 1)
+    t0 = time.perf_counter()
+    h, _, _ = model_lib.forward(cfg, params, {"tokens": long},
+                                mode="prefill")
+    want = model_lib._head(cfg, params, h[:, S - 1:])    # (B, new + 1, V)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]                   # (B, new + 1)
+    got = torch.stack(steps_, 1)
+    band = torch.clamp(2 * (got - want).abs().amax(-1), min=STATE_TIE)
+    differ = got.argmax(-1) != want.argmax(-1)
+    res = {"prompt": [B, S], "decode_steps": new,
+           "long_prefill": list(long.shape),
+           "rel": [_rel(steps_[i], want[:, i]) for i in range(new + 1)],
+           "tokens_differ": int(differ.sum()),
+           "tokens_differ_outside_ties": int((differ &
+                                              (gap >= STATE_TIE)).sum()),
+           "tokens_differ_outside_band": int((differ & (gap >= band)).sum()),
+           "differ_at": [{"lane": int(b), "step": int(i),
+                          "gap": float(gap[b, i]), "band": float(band[b, i])}
+                         for b, i in differ.nonzero().tolist()],
+           "largest_band": float(band.max()),
+           "smallest_top2_gap": float(gap.min()),
+           "prefill_and_decodes_s": decode_s, "long_prefill_s": long_s}
+    _require(bool(torch.isfinite(got).all()),
+             f"{cfg.name}: non-finite logits")
+    _require(max(res["rel"]) < 0.02 and
+             res["tokens_differ_outside_band"] == 0,
+             f"{cfg.name}: decode vs the long prefill {res}")
+    return res
+
+
+def _state_serving(torch, cfg, params, dev, prompts, new):
+    """``Engine(slots=STATE_LANES, cache_len=STATE_CACHE)`` serving
+    ``prompts`` × ``new`` tokens: each request's tokens against its own
+    B = 1 ``prefill`` + ``decode_step`` greedy decode, whose cache is
+    stored as an ``Engine`` lane stores it (``init_cache``'s dtypes, its
+    ring) but never passes through ``kvcache``; steps/s and tokens/s
+    (median of ``SERVE_DRAINS`` drains after a warm-up), a decode
+    step's wall, busy time and kernels, peak CUDA memory."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import tree_map
+    from repro_torch.serving import Engine, Request
+
+    gen = torch.Generator().manual_seed(53)
+    reqs = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in prompts]
+    like = model_lib.init_cache(cfg, 1, STATE_CACHE, device=dev)
+    ring = min(STATE_CACHE, cfg.sliding_window or STATE_CACHE)
+    oracle = {}
+    for uid, p in enumerate(reqs):
+        logits, cache = model_lib.prefill(cfg, params, {"tokens": [p]})
+        cache = tree_map(lambda a, b: a.to(b.dtype),
+                         _grow_ring(torch, cfg, cache, ring), like)
+        toks = [int(logits.argmax(-1))]
+        for i in range(new - 1):
+            logits, cache = model_lib.decode_step(
+                cfg, params, cache, torch.tensor([[toks[-1]]], device=dev),
+                torch.tensor(len(p) + i))
+            toks.append(int(logits.argmax(-1)))
+        oracle[uid] = toks
+    del like, cache
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rates = []
+    for _ in range(1 + SERVE_DRAINS):      # the first drain warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = _lm_drain(Engine(cfg, params, slots=STATE_LANES,
+                               cache_len=STATE_CACHE), reqs,
+                        lambda uid, p: Request(uid=uid, prompt=p,
+                                               max_new_tokens=new))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates.append((eng.steps / wall, len(reqs) * new / wall))
+        got = {st.request.uid: st.generated for st in eng.finished}
+        _require(got == oracle, f"{cfg.name} Engine: tokens differ from "
+                                f"each request's own greedy decode: "
+                                f"{_first_divergence(got, oracle)}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    cache = model_lib.init_cache(cfg, STATE_LANES, STATE_CACHE, device=dev)
+    dcfg = cfg.replace(decode_per_slot=True)
+    step_tok = torch.tensor([[reqs[i % len(reqs)][0]]
+                             for i in range(STATE_LANES)], device=dev)
+    step_pos = torch.tensor([8, 17, 30, 47][:STATE_LANES],
+                            dtype=torch.int32, device=dev)
+    decode = lambda: model_lib.decode_step(  # noqa: E731
+        dcfg, params, cache, step_tok, step_pos)
+    ms = _time_ms(torch, decode, iters=5)
+    return {"lanes": STATE_LANES, "cache_len": STATE_CACHE,
+            "requests": len(reqs), "new_tokens": new,
+            "prompt_lengths": list(prompts), "steps": eng.steps,
+            "tokens_equal_own_greedy": True,
+            "drains_steps_per_s": [a for a, _ in rates[1:]],
+            "warm_up_steps_per_s": rates[0][0],
+            "steps_per_s": _quartiles([a for a, _ in rates[1:]])[0],
+            "tokens_per_s": _quartiles([b for _, b in rates[1:]])[0],
+            "peak_cuda_memory_bytes": peak,
+            "decode_step": {"ms": ms, **_busy(torch, decode, ms, n=2)}}
+
+
+def phase_state_model(torch, dev, card, cfg, scan_len, batch,
+                      new=STATE_NEW, prompts=STATE_PROMPTS,
+                      serve_new=STATE_NEW):
+    """(b)/(c) one state-space model at its published width (seed-0
+    weights on the card, f32 compute): ``_scan_check`` on a
+    ``scan_len``-token prompt, ``_state_consistency`` on a ``batch``
+    prefill and ``new`` greedy decodes, ``_state_serving``."""
+    from repro_torch.models import model as model_lib
+
+    cfg = cfg.replace(compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    out = {"config": cfg.name, "family": cfg.family,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "param_bytes": 4 * cfg.param_count(),
+           "init_s": time.perf_counter() - t0}
+    gen = torch.Generator().manual_seed(59)
+    with torch.no_grad():
+        toks = torch.randint(0, cfg.vocab_size, (1, scan_len),
+                             generator=gen).to(dev)
+        out["scan"] = _scan_check(torch, cfg, params, toks)
+        toks = torch.randint(0, cfg.vocab_size, batch, generator=gen).to(dev)
+        out["consistency"] = _state_consistency(torch, cfg, params, toks, new)
+        out["serving"] = _state_serving(torch, cfg, params, dev, prompts,
+                                        serve_new)
+    return out
+
+
+def phase_state_train(torch, dev, card, hybrid_args=None, ssm_args=None,
+                      resume_at=SSM_RESUME_AT):
+    """(d) both models trained at their published widths through
+    ``repro_torch.launch.train`` (the configs' bf16 compute, remat,
+    grad_accum; AdamW): zamba2 with no checkpoint, xlstm checkpointed
+    every 2 steps in a temporary directory, stopped after its
+    step-``resume_at`` checkpoint and resumed, equal to the straight run
+    to the bit (with deterministic algorithms only if it is not). Each
+    step's loss and wall, one more step's busy time and kernels, peak
+    CUDA memory; xlstm's checkpoint seconds and bytes."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import train_loop
+
+    def profiled_step(kit, params, opt_state, step):
+        batch = kit["pipeline"].batch(step)
+        one = lambda: kit["train_step"](params, opt_state, batch)  # noqa
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        return {"wall_ms": wall_ms, **_busy(torch, one, wall_ms, n=1)}
+
+    def summary(cfg, args, recs, peak):
+        return {"config": cfg.name, "layers": cfg.num_layers,
+                "d_model": cfg.d_model, "params": cfg.param_count(),
+                "remat": cfg.remat, "compute_dtype": cfg.compute_dtype,
+                "grad_accum": cfg.grad_accum, "args": args,
+                "steps": [{k: r[k] for k in ("step", "loss", "accuracy",
+                                              "grad_norm", "lr",
+                                              "step_time_s")}
+                          for r in recs],
+                "peak_cuda_bytes": peak}
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_state_train_")
+    try:
+        # zamba2: the launcher's setup and loop, no checkpoint
+        args = list(hybrid_args or HYBRID_TRAIN_ARGS) + [
+            "--log-every", "1", "--ckpt-dir", os.path.join(root, "hybrid")]
+        cuda = torch.cuda.is_available()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = launch_train.setup(launch_train.parse_args(args))
+        res = train_loop.run(run["loop"], train_step=run["train_step"],
+                             params=run["params"],
+                             opt_state=run["opt_state"],
+                             pipeline=run["pipeline"])
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        losses = [r["loss"] for r in res["metrics"]]
+        _require(all(map(math.isfinite, losses)),
+                 f"{run['cfg'].name} training: losses {losses}")
+        out["hybrid"] = {**summary(run["cfg"], args, res["metrics"], peak),
+                         "profiled_step": profiled_step(
+                             run, res["params"], res["opt_state"],
+                             run["loop"].total_steps),
+                         "seconds": time.perf_counter() - t0}
+        _line({"phase": "state_space_train_hybrid", **out["hybrid"],
+               "card": card})
+        del run, res
+        torch.cuda.empty_cache()
+
+        # xlstm: straight, then stopped after a checkpoint and resumed
+        args = list(ssm_args or SSM_TRAIN_ARGS) + ["--log-every", "1"]
+        io = []
+        real = ckpt_lib.save, ckpt_lib.restore
+        ckpt_lib.save, ckpt_lib.restore = _timed_ckpt_io(torch, ckpt_lib,
+                                                         io)
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "ssm"))
+        try:
+            (straight, resumed, peak, recs, recs_b, _, kit, rel, equal,
+             deterministic) = _resumed_legs(
+                torch, launch_train, train_loop, args,
+                os.path.join(root, "ssm"), 0.0, resume_at)
+        finally:
+            ckpt_lib.save, ckpt_lib.restore = real
+        _require(resumed["resumed_from"] == resume_at and equal,
+                 f"xlstm resumed from {resumed['resumed_from']}, vs the "
+                 f"straight run rel {rel:.3g}, equal to the bit: {equal}")
+        losses = [r["loss"] for r in recs]
+        _require(all(map(math.isfinite, losses)),
+                 f"{kit['cfg'].name} training: losses {losses}")
+        total = launch_train.parse_args(args).steps
+        out["ssm"] = {**summary(kit["cfg"], args, recs, peak),
+                      "resumed_leg_steps": [r["step"] for r in recs_b],
+                      "checkpoint_io": io, "resume_rel": rel,
+                      "resume_bit_equal": equal,
+                      "deterministic_algorithms_needed": deterministic,
+                      "profiled_step": profiled_step(
+                          kit, resumed["params"], resumed["opt_state"],
+                          total),
+                      "seconds": time.perf_counter() - t0}
+        _line({"phase": "state_space_train_ssm", **out["ssm"],
+               "card": card})
+        del straight, resumed, kit
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_state_space(torch, ops, dev, card, hybrid=None, ssm=None,
+                      train=None):
+    """Phase 14: (a) ``phase_reduced_archs`` on the two state-space
+    archs, (b) zamba2-1.2b and (c) xlstm-350m at their published widths
+    (``phase_state_model``), (d) both trained (``phase_state_train``).
+    ``hybrid``/``ssm``/``train`` are keyword overrides of (b), (c) and
+    (d) (the CPU rehearsal passes reduced configs and short runs).
+    Returns the phase's kernel launches (none: the scans, cells and
+    convs are plain PyTorch, as the reference's are plain jnp)."""
+    from repro_torch.configs import xlstm_350m, zamba2_1p2b
+
+    t_phase = time.perf_counter()
+    before = ops.launch_counts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reduced = phase_reduced_archs(torch, dev, card, archs=STATE_ARCHS)
+    _line({"phase": "state_space_reduced", "archs": reduced,
+           "seconds": time.perf_counter() - t0, "card": card})
+    for name, cfg, kw in (
+            ("hybrid", zamba2_1p2b.CONFIG,
+             dict(scan_len=HYBRID_SCAN, batch=HYBRID_BATCH)),
+            ("ssm", xlstm_350m.CONFIG,
+             dict(scan_len=SSM_SCAN, batch=SSM_BATCH))):
+        kw.update((hybrid if name == "hybrid" else ssm) or {})
+        t0 = time.perf_counter()
+        res = phase_state_model(torch, dev, card, kw.pop("cfg", cfg), **kw)
+        torch.cuda.empty_cache()
+        _line({"phase": f"state_space_{name}", **res,
+               "seconds": time.perf_counter() - t0, "card": card})
+    phase_state_train(torch, dev, card, **(train or {}))
+    path = _deltas(ops.launch_counts(), before)
+    _line({"phase": "state_space", "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return path
+
+
 def main() -> int:
     try:
         import torch
@@ -3203,11 +3633,13 @@ def main() -> int:
         train_launches = phase_train(torch, ops, ref, tcompile, tq, tcl,
                                      chip_mod, var, dev, card)
         family_launches = phase_families(torch, ops, ref, tcl, dev, card)
+        state_launches = phase_state_space(torch, ops, dev, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
                           fleet_launches, rank_launches, deploy_launches,
-                          lm_launches, train_launches, family_launches):
+                          lm_launches, train_launches, family_launches,
+                          state_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

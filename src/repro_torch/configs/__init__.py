@@ -2,10 +2,9 @@
 §IV.B and the published Tables II–VI) and the architecture registry
 (``--arch <id>`` → :class:`ModelConfig`).
 
-The registry lists the ported architectures only: the dense, vlm,
-audio and moe configs. The reference's hybrid (zamba2) and ssm (xlstm)
-architectures are ROADMAP Queue 1 item 9: asking for one raises
-``KeyError`` naming it.
+The registry lists all ten of the reference's architectures, in its
+order: the hybrid (zamba2), ssm (xlstm), vlm, audio, moe and dense
+configs. An unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -21,6 +20,8 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _ARCH_MODULES: Dict[str, str] = {
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "musicgen-large": "repro_torch.configs.musicgen_large",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
@@ -31,16 +32,10 @@ _ARCH_MODULES: Dict[str, str] = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
 }
 
-# the reference's registry entries that are not ported yet
-_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m")
-
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP Queue 1 "
-                       f"item 9); ported: {ARCH_IDS}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(_ARCH_MODULES[arch])

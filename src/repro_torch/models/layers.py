@@ -4,8 +4,7 @@ Port of ``repro.models.layers``: the same arithmetic in the same order
 and dtypes. ``dense_init``/``embed_init`` draw a truncated normal on
 [-2, 2] from a ``torch.Generator``; the reference's ``jax.random``
 draws cannot be replayed, so comparisons hand weights across
-(``repro_torch.models.model.params_from_numpy``). The causal-conv
-helpers belong to the SSM slice (ROADMAP Queue 1 item 9).
+(``repro_torch.models.model.params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -170,3 +169,33 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     denom = torch.clamp(valid.sum(), min=1)
     acc = ((torch.argmax(logits, -1) == safe_labels) * valid).sum() / denom
     return nll.sum() / denom, acc
+
+
+# --------------------------------------------------------------------- #
+# causal depthwise conv (the Mamba2 / mLSTM stem)
+# --------------------------------------------------------------------- #
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor]) -> torch.Tensor:
+    """x: (B, L, C); w: (W, C) depthwise; left-padded causal. W shifted
+    products added in the reference's order (W is 4: no conv primitive
+    needed)."""
+    W, L = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x, [0, 0, W - 1, 0])
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + xp[:, i:i + L, :] * w[i]
+    if b is not None:
+        out = out + b
+    return out
+
+
+def conv_update(state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-step causal conv. state: (B, W-1, C) the last W-1 inputs;
+    x_t: (B, C). Returns (the new state, the output (B, C))."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)   # (B, W, C)
+    out = torch.einsum("bwc,wc->bc", window, w)
+    if b is not None:
+        out = out + b
+    return window[:, 1:, :], out

@@ -9,8 +9,9 @@ Port of ``repro.models.model``. The same batch-dict conventions
   decode:  {"tokens": (B, 1) int, "pos": () or (B,) int, cache}
 
 and the same parameter and cache layouts: a stacked leading layer axis,
-wq (L, d, H, dh), wo (L, H, dh, d), cache (L, B, T, KH, dh). Every
-function here runs on the device its parameters live on.
+wq (L, d, H, dh), wo (L, H, dh, d), cache (L, B, T, KH, dh); the hybrid
+and xLSTM stacks' group axes (``transformer``). Every function here
+runs on the device its parameters live on.
 
 Weights: :func:`init_params` draws each leaf from a ``torch.Generator``
 of the target device, seeded by the splitmix64 mix of (seed, leaf,
@@ -31,6 +32,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (cdtype, cross_entropy, dense_init,
                                        embed_init, embed_tokens, lm_logits,
                                        pdtype, rms_norm)
+from repro_torch.models.xlstm import slstm_ff_width
 from repro_torch.runtime import DeviceLike, resolve_device
 from repro_torch.variability.noise import stream_seed
 
@@ -73,9 +75,8 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Params:
 
 
 def params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Params:
-    """The reference's transformer parameter tree, dense or MoE (numpy
-    arrays, or anything ``np.asarray`` takes, under the same keys) → the
-    port's, in
+    """The reference's parameter tree, of any family (numpy arrays, or
+    anything ``np.asarray`` takes, under the same keys) → the port's, in
     ``cfg.param_dtype`` on ``device`` (default ``cuda``). The layouts are
     the same, so this is the identity on shapes; the parity tests use it,
     the serving path does not."""
@@ -195,18 +196,17 @@ def init_cache(cfg, batch: int, cache_len: int,
                                         resolve_device(device))
 
 
+def cache_axes(cfg):
+    """Each cache leaf's (lane axis, ring axis or None), for the serving
+    engine's lane surgery (``serving.kvcache``)."""
+    return tf.get_stack(cfg).cache_axes(cfg)
+
+
 # --------------------------------------------------------------------- #
 # parameter counting (analytic)
 # --------------------------------------------------------------------- #
-def count_params(cfg, active_only: bool = False) -> int:
-    """The leaves :func:`init_params` would make, counted from the
-    config (the reference counts an ``eval_shape`` of its init; the
-    totals are equal). ``active_only`` counts, of each MoE layer's
-    experts, only the ``top_k`` a token visits (the shared experts and
-    the router stay counted), as the reference does. The hybrid and
-    ssm families are not ported (ROADMAP Queue 1 item 9):
-    :func:`transformer.get_stack` raises for them."""
-    tf.get_stack(cfg)
+def _block_params(cfg) -> int:
+    """One attention + MLP (or MoE) block's parameters."""
     d, H, KH, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     block = d * H * dh + 2 * d * KH * dh + H * dh * d + 2 * d
     if cfg.family == "moe":
@@ -219,7 +219,43 @@ def count_params(cfg, active_only: bool = False) -> int:
         block += H * dh + 2 * KH * dh
     if cfg.post_block_norm:
         block += 2 * d
-    total = cfg.padded_vocab * d + cfg.num_layers * block + d
+    return block
+
+
+def _mamba_params(cfg) -> int:
+    """One Mamba2 block's parameters and its pre-norm."""
+    d, d_in, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    gn, W = cfg.ssm_ngroups * cfg.ssm_state, cfg.conv_width
+    return (2 * d * d_in + 2 * d * gn + d * H + (W + 1) * (d_in + 2 * gn)
+            + 3 * H + d_in + d_in * d + d)
+
+
+def _xlstm_group_params(cfg) -> int:
+    """One xLSTM group's parameters: its mLSTMs and its sLSTM."""
+    d, W = cfg.d_model, cfg.conv_width
+    dm, Hl = int(cfg.mlstm_proj_factor * d), cfg.num_lstm_heads
+    mlstm = (d + 2 * d * dm + (W + 1) * dm + 3 * dm * dm + 2 * (dm * Hl + Hl)
+             + 2 * dm + dm * d)
+    f, dh = slstm_ff_width(cfg), d // Hl
+    slstm = d + 4 * d * d + 4 * Hl * dh * dh + 4 * d + 2 * d + 2 * d * f
+    return (cfg.slstm_period - 1) * mlstm + slstm
+
+
+def count_params(cfg, active_only: bool = False) -> int:
+    """The leaves :func:`init_params` would make, counted from the
+    config for every family (the reference counts an ``eval_shape`` of
+    its init; the totals are equal). ``active_only`` counts, of each MoE
+    layer's experts, only the ``top_k`` a token visits (the shared
+    experts and the router stay counted), as the reference does."""
+    stack = tf.get_stack(cfg)
+    d = cfg.d_model
+    if stack is tf.HybridStack:
+        trunk = cfg.num_layers * _mamba_params(cfg) + _block_params(cfg)
+    elif stack is tf.XLSTMStack:
+        trunk = cfg.num_layers // cfg.slstm_period * _xlstm_group_params(cfg)
+    else:
+        trunk = cfg.num_layers * _block_params(cfg)
+    total = cfg.padded_vocab * d + trunk + d
     if not cfg.tie_embeddings:
         total += d * cfg.padded_vocab
     if active_only and cfg.num_experts:

@@ -1,11 +1,15 @@
-"""The dense and MoE transformer block stacks.
+"""The per-family block stacks: dense (also vlm and audio), MoE, the
+zamba-style hybrid and xLSTM.
 
-Port of the dense/vlm/audio and moe stacks of
-``repro.models.transformer``. Parameters are
-stacked along a leading layer axis, as the reference's scan stacks
-them; a Python loop over the layers replaces the scan. In train mode
-each block is rematerialised as ``cfg.remat`` says, as the reference
-wraps its scan body in ``jax.checkpoint``:
+Port of ``repro.models.transformer``. Parameters are stacked along
+leading axes, as the reference's scans stack them: (layers, ...) for
+the dense and MoE stacks; (groups, per-group, ...) for the hybrid's
+Mamba2 blocks, with its one shared attention block unstacked; (groups,
+...) and (groups, mLSTMs a group, ...) for xLSTM. Python loops over the
+layers and groups replace the scans. In train mode each block (each
+group, in the hybrid and xLSTM stacks) is rematerialised as
+``cfg.remat`` says, as the reference wraps its scan body in
+``jax.checkpoint``:
 
   "full" — ``torch.utils.checkpoint.checkpoint`` (non-reentrant) around
            each block: only the block's input is kept, the rest is
@@ -18,18 +22,22 @@ wraps its scan body in ``jax.checkpoint``:
 
 Stack API, as the reference's:
 
-  init(seed, cfg, device)                        -> stacked params
+  init(generator, cfg, device)                   -> stacked params
   apply(p, cfg, h, positions, mode, cache)       -> (h, new_cache, aux)
   init_cache(cfg, batch, cache_len, dtype, device) -> cache
+  cache_axes(cfg)     -> each cache leaf's (lane axis, ring axis or None)
+
+``cache_axes`` is what the serving engine's lane surgery
+(``serving.kvcache``) reads: the attention rings' lane is axis 1 and
+their positions axis 2; the Mamba2 and mLSTM states, stacked (groups,
+per-group, B, ...), have their lane at axis 2 and no ring; the sLSTM
+state's lane is axis 1.
 
 ``aux`` accumulates by summation over the layers, in every mode (the
 reference's ``scan_stack``): the MoE stack starts it at zero
 ``aux_loss`` and ``drop_frac``, so ``drop_frac`` is a sum over layers,
 not a share (reports divide it by the layer count); the dense stack's
 is empty.
-
-The hybrid (zamba2) and ssm (xlstm) stacks are ROADMAP Queue 1 item 9:
-``get_stack`` raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -41,11 +49,20 @@ import torch.utils.checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import mlp_apply, mlp_init, pdtype, rms_norm
 
 # one generator per parameter leaf of a block, keyed by these codes; an
 # MoE block's MLP leaves take the codes after them (``moe.MOE_LEAVES``)
 _LEAVES = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+
+# (lane axis, ring axis) of a stacked cache's leaves: an attention ring
+# (layers or groups, B, T, ...); a state stacked (groups, per-group, B,
+# ...) or (groups, B, ...), copied whole
+RING_AXES = (1, 2)
+STATE_AXES_2 = (2, None)
+STATE_AXES_1 = (1, None)
 
 
 def layer_slice(tree, layer: int):
@@ -192,13 +209,181 @@ class DenseStack:
     def init_cache(cls, cfg, batch: int, cache_len: int,
                    dtype: torch.dtype, device: torch.device) -> Dict:
         one = attn.init_attn_cache(cfg, batch, cache_len, dtype, device)
-        return {k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
-                               dtype=v.dtype, device=device)
-                for k, v in one.items()}
+        return _zeros_stacked(one, cfg.num_layers)
+
+    @classmethod
+    def cache_axes(cls, cfg):
+        return RING_AXES
 
 
 class MoEStack(DenseStack):
     use_moe = True
+
+
+# ===================================================================== #
+# zamba-style hybrid: groups of Mamba2 blocks + one shared attention block
+# ===================================================================== #
+class HybridStack:
+    """cfg.num_layers Mamba2 blocks; after every ``shared_attn_every`` of
+    them one application of a single *shared* transformer block, whose
+    attention sees ``cfg.sliding_window`` positions (its cache holds
+    ``min(cache_len, window)``)."""
+
+    @staticmethod
+    def _group_geometry(cfg):
+        per = cfg.shared_attn_every
+        if per <= 0 or cfg.num_layers % per:
+            raise ValueError(f"hybrid: {cfg.num_layers} layers do not tile "
+                             f"into groups of {per}")
+        return cfg.num_layers // per, per
+
+    @classmethod
+    def init(cls, generator: Callable[..., torch.Generator], cfg,
+             device: torch.device) -> Dict:
+        """``generator(layer, leaf)``: Mamba2 block ``layer`` (0 ..
+        num_layers - 1) draws ``ssm.MAMBA_LEAVES``; the shared block is
+        layer ``num_layers``."""
+        G, per = cls._group_geometry(cfg)
+        d = cfg.d_model
+        groups = [{
+            "mamba": _stack_trees([
+                ssm_mod.mamba_init(lambda i, _l=g * per + j: generator(_l, i),
+                                   cfg, device=device)
+                for j in range(per)]),
+            "mamba_norm": torch.ones((per, d), dtype=pdtype(cfg),
+                                     device=device)} for g in range(G)]
+        return {"groups": _stack_trees(groups),
+                "shared": _block_init(lambda i: generator(cfg.num_layers, i),
+                                      cfg, device)}
+
+    @classmethod
+    def apply(cls, p, cfg, h, *, positions, mode,
+              cache: Optional[Dict] = None):
+        G, per = cls._group_geometry(cfg)
+        window = cfg.sliding_window if cfg.sliding_window else None
+
+        def group(h, p_g, c_g):
+            mamba = []
+            for i in range(per):
+                m_in = rms_norm(h, p_g["mamba_norm"][i], cfg.norm_eps)
+                out, c_m = ssm_mod.mamba_apply(
+                    layer_slice(p_g["mamba"], i), cfg, m_in, mode=mode,
+                    cache=None if c_g is None else
+                    layer_slice(c_g["mamba"], i))
+                h = h + out
+                mamba.append(c_m)
+            h, c_a, _ = _block_apply(
+                p["shared"], cfg, h, positions=positions, mode=mode,
+                cache=None if c_g is None else c_g["attn"], window=window)
+            return h, {"mamba": stack_caches(mamba), "attn": c_a}
+
+        return _apply_groups(group, cfg, mode, h, p["groups"], cache, G)
+
+    @classmethod
+    def init_cache(cls, cfg, batch: int, cache_len: int,
+                   dtype: torch.dtype, device: torch.device) -> Dict:
+        G, per = cls._group_geometry(cfg)
+        attn_len = min(cache_len, cfg.sliding_window) \
+            if cfg.sliding_window else cache_len
+        mamba = ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+        one = attn.init_attn_cache(cfg, batch, attn_len, dtype, device)
+        return {"mamba": _zeros_stacked(mamba, G, per),
+                "attn": _zeros_stacked(one, G)}
+
+    @classmethod
+    def cache_axes(cls, cfg):
+        return {"mamba": STATE_AXES_2, "attn": RING_AXES}
+
+
+# ===================================================================== #
+# xLSTM: groups of (slstm_period - 1) mLSTM blocks + 1 sLSTM block
+# ===================================================================== #
+class XLSTMStack:
+    @staticmethod
+    def _group_geometry(cfg):
+        per = cfg.slstm_period
+        if per <= 0 or cfg.num_layers % per:
+            raise ValueError(f"xlstm: {cfg.num_layers} layers do not tile "
+                             f"into groups of {per}")
+        return cfg.num_layers // per, per - 1
+
+    @classmethod
+    def init(cls, generator: Callable[..., torch.Generator], cfg,
+             device: torch.device) -> Dict:
+        """``generator(layer, leaf)``: group g's mLSTM j is layer
+        g·period + j (``xlstm.MLSTM_LEAVES``), its sLSTM layer g·period
+        + period - 1 (``xlstm.SLSTM_LEAVES``)."""
+        G, n_m = cls._group_geometry(cfg)
+        per = n_m + 1
+        groups = [{
+            "mlstm": _stack_trees([
+                xlstm_mod.mlstm_init(
+                    lambda i, _l=g * per + j: generator(_l, i), cfg,
+                    device=device) for j in range(n_m)]),
+            "slstm": xlstm_mod.slstm_init(
+                lambda i, _l=g * per + n_m: generator(_l, i), cfg,
+                device=device)} for g in range(G)]
+        return {"groups": _stack_trees(groups)}
+
+    @classmethod
+    def apply(cls, p, cfg, h, *, positions, mode,
+              cache: Optional[Dict] = None):
+        G, n_m = cls._group_geometry(cfg)
+
+        def group(h, p_g, c_g):
+            mlstm = []
+            for i in range(n_m):
+                out, c_m = xlstm_mod.mlstm_apply(
+                    layer_slice(p_g["mlstm"], i), cfg, h, mode=mode,
+                    cache=None if c_g is None else
+                    layer_slice(c_g["mlstm"], i))
+                h = h + out
+                mlstm.append(c_m)
+            h, c_s = xlstm_mod.slstm_apply(
+                p_g["slstm"], cfg, h, mode=mode,
+                cache=None if c_g is None else c_g["slstm"])
+            return h, {"mlstm": stack_caches(mlstm), "slstm": c_s}
+
+        return _apply_groups(group, cfg, mode, h, p["groups"], cache, G)
+
+    @classmethod
+    def init_cache(cls, cfg, batch: int, cache_len: int,
+                   dtype: torch.dtype, device: torch.device) -> Dict:
+        G, n_m = cls._group_geometry(cfg)
+        mlstm = xlstm_mod.init_mlstm_cache(cfg, batch, dtype, device)
+        slstm = xlstm_mod.init_slstm_cache(cfg, batch, device)
+        return {"mlstm": _zeros_stacked(mlstm, G, n_m),
+                "slstm": _zeros_stacked(slstm, G)}
+
+    @classmethod
+    def cache_axes(cls, cfg):
+        return {"mlstm": STATE_AXES_2, "slstm": STATE_AXES_1}
+
+
+def _apply_groups(group, cfg, mode, h, groups, cache, G):
+    """The hybrid and xLSTM stacks' loop over their G groups (the
+    reference's ``scan_stack``): ``group(h, p_g, c_g) -> (h, cache_g)``,
+    rematerialised as a whole in train mode, where it keeps no cache.
+    Returns (h, the stacked caches or None, no aux)."""
+    caches = []
+    for g in range(G):
+        p_g = layer_slice(groups, g)
+        if mode == "train":
+            h = _remat(lambda h, p_g=p_g: group(h, p_g, None)[0], cfg,
+                       mode)(h)
+        else:
+            h, c_g = group(h, p_g, None if cache is None else
+                           layer_slice(cache, g))
+            caches.append(c_g)
+    return h, stack_caches(caches), {}
+
+
+def _zeros_stacked(one: Dict, *lead: int) -> Dict:
+    """Zeros of each leaf's dtype, with ``lead`` axes in front (as the
+    reference's ``init_cache`` stacks: zeros, whatever the leaf's own
+    initial value)."""
+    return {k: torch.zeros(tuple(lead) + tuple(v.shape), dtype=v.dtype,
+                           device=v.device) for k, v in one.items()}
 
 
 def _drop_cache(out):
@@ -218,8 +403,8 @@ def get_stack(cfg):
         return DenseStack
     if cfg.family == "moe":
         return MoEStack
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the hybrid (mamba2) and ssm (xlstm) "
-            f"stacks are not ported yet (ROADMAP Queue 1 item 9)")
+    if cfg.family == "hybrid":
+        return HybridStack
+    if cfg.family == "ssm":
+        return XLSTMStack
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -656,12 +656,17 @@ def greedy(logits: torch.Tensor, generator: torch.Generator
 
 
 class Engine(SlotScheduler):
-    """Continuous-batching greedy decode of a dense transformer: one
-    B = 1 prefill a request at admission, written into its lane's KV
-    slot, then ONE batched per-slot decode over every lane a step (idle
-    lanes decode junk that position masking ignores and the next admit
+    """Continuous-batching greedy decode of a language model of any
+    family: one B = 1 prefill a request at admission, written into its
+    lane of the cache (``kvcache.write_slot`` at the stack's
+    ``cache_axes``: attention rings and recurrent states alike), then
+    ONE batched per-slot decode over every lane a step (idle lanes
+    decode junk that position masking ignores and the next admit
     overwrites). Runs where ``params`` live. ``sampler(logits,
-    generator)`` picks each lane's next token (default: greedy)."""
+    generator)`` picks each lane's next token (default: greedy).
+
+    Unlike the reference's engine (ROADMAP R12), each hybrid or xLSTM
+    lane keeps its own request's state."""
 
     def __init__(self, cfg, params, *, slots: int = 4,
                  cache_len: int = 256,
@@ -674,6 +679,7 @@ class Engine(SlotScheduler):
         self.sampler = sampler or greedy
         self.cache = model_lib.init_cache(self.cfg, slots, cache_len,
                                           device=self.device)
+        self.axes = model_lib.cache_axes(self.cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         # per-lane scratch (host-side; tiny)
         self._next_tok = np.zeros((slots,), np.int32)
@@ -689,7 +695,7 @@ class Engine(SlotScheduler):
         logits, one_cache = model_lib.prefill(
             self.cfg, self.params, {"tokens": [list(req.prompt)]})
         first = int(self._sample(logits)[0])
-        kvcache.write_slot(self.cache, one_cache, slot)
+        kvcache.write_slot(self.cache, one_cache, slot, self.axes)
         st = RequestState(req, slot, pos=len(req.prompt),
                           generated=[first],
                           prefill_s=time.perf_counter() - t0)
@@ -703,7 +709,7 @@ class Engine(SlotScheduler):
              st.generated[-1] == st.request.eos_id)
 
     def _release(self, st: RequestState) -> None:
-        kvcache.clear_slot(self.cache, st.slot)
+        kvcache.clear_slot(self.cache, st.slot, self.axes)
 
     def _step_active(self) -> int:
         """ONE batched decode for all active lanes, each at its own

@@ -1,5 +1,6 @@
 """The port's other architectures (``repro_torch.configs`` deepseek,
-granite, gemma2, internvl2, musicgen, moonshot and dbrx), the MoE stack
+granite, gemma2, internvl2, musicgen, moonshot, dbrx, and the hybrid
+zamba2 and ssm xlstm), the MoE stack
 (``repro_torch.models.moe``), the frontend stubs and a gemma2
 ``compile_lm``, against the reference on the CPU.
 
@@ -45,7 +46,11 @@ from repro_torch.pytree import flatten_with_path
 torch.set_num_threads(1)
 
 ARCHS = ["deepseek-7b", "granite-3-8b", "gemma2-9b", "internvl2-26b",
-         "musicgen-large", "moonshot-v1-16b-a3b", "dbrx-132b"]
+         "musicgen-large", "moonshot-v1-16b-a3b", "dbrx-132b", "zamba2-1.2b",
+         "xlstm-350m"]
+STACKS = {"dense": ttf.DenseStack, "vlm": ttf.DenseStack,
+          "audio": ttf.DenseStack, "moe": ttf.MoEStack,
+          "hybrid": ttf.HybridStack, "ssm": ttf.XLSTMStack}
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "dbrx-132b"]
 B, S = 2, 32
 
@@ -80,6 +85,22 @@ def _setup(arch):
     return jcfg, jp, tcfg, tp, batch
 
 
+def grow_rings(cfg, cache, extra: int):
+    """The cache with each attention ring (``cache_axes``' ring axis)
+    grown by ``extra`` zero slots; recurrent states pass through, as
+    the reference test's ``_grow_ring`` passes them."""
+    def grow(c, axes):
+        if isinstance(c, dict):
+            return {k: grow(v, axes[k] if isinstance(axes, dict) else axes)
+                    for k, v in c.items()}
+        ring = axes[1]
+        if ring is None:
+            return c
+        return torch.nn.functional.pad(
+            c, [0, 0] * (c.dim() - 1 - ring) + [0, extra])
+    return grow(cache, tmodel.cache_axes(cfg))
+
+
 def _train_batch(cfg, batch, lib):
     """The modality's train batch: embeds for a stub frontend, else
     tokens; ``lib`` turns numpy into the package's arrays."""
@@ -98,9 +119,7 @@ def test_config_equals_the_reference(arch):
         assert (t.padded_vocab, t.q_per_kv) == (j.padded_vocab, j.q_per_kv)
     cfg = tconfigs.get_config(arch)
     assert cfg.name == arch and cfg.padded_vocab % 512 == 0
-    stack = ttf.get_stack(cfg)
-    assert stack is (ttf.MoEStack if cfg.family == "moe" else
-                     ttf.DenseStack)
+    assert ttf.get_stack(cfg) is STACKS[cfg.family]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -169,9 +188,8 @@ def test_prefill_decode_consistency(arch):
     jfull, _ = jmodel.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)})
     assert _rel(full.numpy(), _np(jfull)) <= 1e-5
     _, cache = tmodel.prefill(tcfg, tp, {"tokens": toks[:, :S - 1]})
-    cache = {k: torch.nn.functional.pad(
-        v, [0, 0] * (v.dim() - 3) + [0, 1]) for k, v in cache.items()}
-    dec, _ = tmodel.decode_step(tcfg, tp, cache, toks[:, S - 1:],
+    dec, _ = tmodel.decode_step(tcfg, tp, grow_rings(tcfg, cache, 1),
+                                toks[:, S - 1:],
                                 np.int32(S - 1))
     assert torch.isfinite(dec).all()
     assert _rel(dec.numpy(), full.numpy()) < 0.02

@@ -789,3 +789,90 @@ def test_gpu_reduced_gemma2_compile_lm_matches_dense(cuda, system):
     want_d, _ = model_lib.decode_step(cfg, params, grow(wcache), step, pos)
     got_d, _ = clm.decode(grow(cache), step, pos)
     assert _rel(got_d.cpu(), want_d.cpu()) <= 1e-5
+
+
+# ---------------- the state-space families (zamba2, xlstm) ------------- #
+def _state_reduced(arch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as model_lib
+    cfg = get_reduced(arch).replace(compute_dtype="float32")
+    return cfg, model_lib.init_params(cfg, 0, device="cpu")
+
+
+def _scan_operands(scan, L, dev):
+    """Layer 0's scan inputs of the reduced arch, from its projections of
+    a seeded hidden state (on the CPU), moved to ``dev``."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models import transformer as ttf
+    cfg, params = _state_reduced("zamba2-1.2b" if scan == "ssd"
+                                 else "xlstm-350m")
+    g0 = ttf.layer_slice(params["stack"]["groups"], 0)
+    x = torch.from_numpy(np.random.default_rng(L).standard_normal(
+        (2, L, cfg.d_model)).astype(np.float32))
+    if scan == "ssd":
+        ops_ = ssm.ssd_inputs(ttf.layer_slice(g0["mamba"], 0), cfg, x)[4:]
+    else:
+        ops_ = xlstm.mlstm_inputs(ttf.layer_slice(g0["mlstm"], 0), cfg,
+                                  x)[3:8]
+    return [t.to(dev) for t in ops_]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scan", ["ssd", "mlstm"])
+@pytest.mark.parametrize("L,chunk", [(32, 256), (512, 128)])
+def test_gpu_chunked_scans_match_their_recurrence(cuda, scan, L, chunk):
+    """``ssd_chunked`` and ``mlstm_cell_chunked`` on the card, one chunk
+    and four, against their own per-token recurrence on the card:
+    outputs and final state rel ≤ 1e-5 (the CPU test's bound; IEEE f32
+    summed in another order)."""
+    from repro_torch.models import ssm, xlstm
+    card = _scan_operands(scan, L, cuda)
+    if scan == "ssd":
+        (y, s), (y_rec, s_rec) = (ssm.ssd_chunked(*card, chunk),
+                                  ssm.ssd_recurrence(*card))
+        states = [(s, s_rec)]
+    else:
+        (y, st), (y_rec, st_rec) = (
+            xlstm.mlstm_cell_chunked(*card, None, chunk),
+            xlstm.mlstm_recurrence(*card))
+        states = list(zip(xlstm.restabilise(st, st_rec[2]), st_rec[:2]))
+    assert y.device.type == cuda.type
+    assert _rel(y.cpu(), y_rec.cpu()) <= 1e-5
+    for got, want in states:
+        assert _rel(got.cpu(), want.cpu()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_gpu_state_space_engine_serves_each_requests_greedy(cuda, arch):
+    """The reduced arch on the card: ``Engine(slots=2)`` serving 3
+    prompts × 6 tokens gives each request the tokens of its own B = 1
+    greedy decode, and the prefill logits equal the CPU's (rel ≤ 1e-5)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import tree_map
+    from repro_torch.serving import Engine, Request
+    cfg, cpu_params = _state_reduced(arch)
+    params = tree_map(lambda p: p.to(cuda), cpu_params)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist()
+               for n in (5, 9, 12)]
+    eng = Engine(cfg, params, slots=2, cache_len=32)
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+    eng.run_until_drained()
+    got = {st.request.uid: st.generated for st in eng.finished}
+    for uid, p in enumerate(prompts):
+        logits, cache = model_lib.prefill(cfg, params, {"tokens": [p]})
+        want, _ = model_lib.prefill(cfg, cpu_params, {"tokens": [p]})
+        assert _rel(logits.cpu(), want) <= 1e-5
+        if "attn" in cache:
+            cache["attn"] = {k: torch.nn.functional.pad(
+                v, [0, 0, 0, 0, 0, 32 - v.shape[2]])
+                for k, v in cache["attn"].items()}
+        toks = [int(logits.argmax(-1))]
+        while len(toks) < 6:
+            logits, cache = model_lib.decode_step(
+                cfg, params, cache, torch.tensor([[toks[-1]]], device=cuda),
+                torch.tensor(len(p) + len(toks) - 1))
+            toks.append(int(logits.argmax(-1)))
+        assert got[uid] == toks, uid

@@ -111,12 +111,16 @@ def test_qwen_config_equals_the_reference():
 
 
 def test_registry_names_the_queue_item_for_unported_archs():
-    with pytest.raises(KeyError, match="item 9"):
-        tconfigs.get_config("zamba2-1.2b")
+    """Every architecture of the reference is ported: the registry
+    refuses only ids it does not know, and ``get_stack`` only families
+    it does not know."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("zamba3-9b")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_reduced("no-such-arch")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttf.get_stack(tqwen.reduced().replace(family="hybrid"))
+    with pytest.raises(ValueError, match="unknown family"):
+        ttf.get_stack(tqwen.reduced().replace(family="rwkv"))
 
 
 @pytest.mark.parametrize("cfg_kw", [{}, {"tie_embeddings": False},

@@ -490,3 +490,49 @@ def test_smoke_families_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
         for s in ("memristor", "digital"))
     assert launches["int8_matmul_fused"] == launches["int8_matmul_raw"] == 0
     assert out.count('"lm_shape"') == 2 * 5 * 2
+
+
+def test_smoke_state_space_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
+    """Phase 14 on the CPU, cut to size: the two reduced archs against
+    the CPU (the same tensors twice), the reduced zamba2 (a 40-token
+    prompt past its 32-token window) and xlstm through the scan check,
+    prefill/decode consistency and an Engine drain of 3 prompts on 4
+    lanes, then both trained at the reduced width, xlstm stopped after
+    its step-2 checkpoint and resumed to the bit. No kernel launches."""
+    from repro_torch.configs import get_reduced
+    smoke, ops = cpu_smoke
+    monkeypatch.setattr(smoke, "SERVE_DRAINS", 1)
+    monkeypatch.setattr(smoke, "_time_ms",
+                        lambda torch, fn, iters=20, warmup=3: 2.0)
+    monkeypatch.setattr(smoke, "_busy", lambda torch, fn, ms, n=5: {})
+    small = dict(new=3, prompts=(3, 5, 8), serve_new=4)
+    train = ["--reduced", "--global-batch", "2", "--seq-len", "16",
+             "--device", "cpu"]
+    launches = smoke.phase_state_space(
+        torch, ops, torch.device("cpu"), "cpu",
+        hybrid=dict(cfg=get_reduced("zamba2-1.2b"), scan_len=64,
+                    batch=(1, 40), **small),
+        ssm=dict(cfg=get_reduced("xlstm-350m"), scan_len=64, batch=(2, 32),
+                 **small),
+        train=dict(hybrid_args=smoke.HYBRID_TRAIN_ARGS + train,
+                   ssm_args=smoke.SSM_TRAIN_ARGS + train))
+    lines = _phase_lines(capsys.readouterr().out)
+    assert set(lines["state_space_reduced"]["archs"]) == \
+        set(smoke.STATE_ARCHS)
+    for name, op in (("hybrid", "ssd_chunked"),
+                     ("ssm", "mlstm_cell_chunked")):
+        res = lines[f"state_space_{name}"]
+        assert res["scan"]["op"] == op and res["scan"]["y_rel"] <= 1e-5
+        c = res["consistency"]
+        assert len(c["rel"]) == 4 and max(c["rel"]) < 0.02
+        assert c["tokens_differ_outside_ties"] == 0 and \
+            c["tokens_differ_outside_band"] == 0
+        assert res["serving"]["requests"] == 3 and \
+            res["serving"]["tokens_equal_own_greedy"]
+    hybrid = lines["state_space_train_hybrid"]
+    assert [s["step"] for s in hybrid["steps"]] == [0, 1]
+    ssm = lines["state_space_train_ssm"]
+    assert ssm["resume_bit_equal"] and ssm["resumed_leg_steps"] == [0, 1,
+                                                                    2, 3]
+    assert {r["op"] for r in ssm["checkpoint_io"]} == {"save", "restore"}
+    assert set(launches.values()) == {0}
