@@ -180,16 +180,36 @@ Phases, each of which ends the run with a non-zero exit on failure:
      prefill and 16 decodes against a 4 × 1,040 prefill, the same
      ``Engine`` drain; (d) both trained through
      ``repro_torch.launch.train`` (global batch 8 × 512 tokens, the
-     configs' bf16 compute, remat and accumulation, AdamW): zamba2 2
-     steps with no checkpoint, xlstm 4 steps checkpointed every 2 in a
-     temporary directory, stopped after step 2 and resumed, equal to
-     the straight run to the bit; each step's loss and wall, a further
-     step's busy time and kernels, peak memory, xlstm's checkpoint
-     seconds and bytes.
+     configs' bf16 compute, remat and
+     accumulation, AdamW): zamba2 2 steps with no checkpoint, xlstm 4
+     steps checkpointed every 2 in a temporary directory, stopped after
+     step 2 and resumed, equal to the straight run to the bit; each
+     step's loss and wall, a further step's busy time and kernels, peak
+     memory, xlstm's checkpoint seconds and bytes.
+ 15. parallel: the training substrate's parallelism on 2 ranks sharing
+     the card (``launch_local_fleet``, one gloo group): (a) the
+     full-width qwen1.5-0.5B, 3 steps of global batch 8 × 128 tokens
+     (2 microbatches) on ``TokenPipeline(seed=0)``, AdamW eps 1e-4 —
+     one process first on the card (f32 compute, then the config's
+     bf16), then the ranks as data parallelism with replicated
+     parameters (``steps.make_dp_train_step``: each rank its half of
+     every microbatch, the f32 gradients all-reduced over gloo on the
+     card's tensors; gloo's functional collectives, which DTensor
+     issues, crash on CUDA tensors, so the DTensor step runs on CPU
+     ranks only); each rank's f32 losses and final parameters within
+     rel 1e-5 of the one process's, its bf16 losses within 1e-3; per
+     rank each step's wall and seconds and bytes in collectives, a
+     further step's busy time and kernels, peak memory; (b)
+     ``compressed_psum`` at qwen's full gradient tree (464 M f32
+     elements) between the ranks, different seeded gradients on each,
+     5 steps of error feedback: every leaf's mean within scale/2 of the
+     plain ``all_reduce`` mean, the summed means within one step's
+     bound of the summed plain means; the seconds of each reduction
+     and the wire bytes.
 
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–14 (phase 9: what the ranks report; a
-killed rank reports nothing; phase 14 launches none).
+(phases 2–3) and in phases 5–15 (phase 9: what the ranks report; a
+killed rank reports nothing; phases 14 and 15 launch none).
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -319,6 +339,17 @@ HYBRID_TRAIN_ARGS = ["--arch", "zamba2-1.2b", "--steps", "2",
 SSM_TRAIN_ARGS = ["--arch", "xlstm-350m", "--steps", "4", "--global-batch",
                   "8", "--seq-len", "512", "--ckpt-every", "2"]
 SSM_RESUME_AT = 2       # the interrupted leg stops after its step-2 save
+PAR_RANKS = 2           # phase 15: ranks sharing the one card
+PAR_SPEC = {"arch": "qwen1.5-0.5b", "reduced": False, "global_batch": 8,
+            "seq_len": 128, "steps": 3, "psum_steps": 5}
+PAR_LR = 3e-4           # the launcher's default peak lr (cosine, warm-up 1)
+PAR_EPS = 1e-4          # AdamW eps of the parity runs (ROADMAP "Parity traps")
+PAR_TOL = 1e-5          # f32 losses and parameters, 2 ranks vs one process
+PAR_BF16_TOL = 1e-3     # bf16 losses: the halves of a microbatch round
+#                         their products (8-bit mantissas) otherwise;
+#                         8.4e-5 measured on the H100 at 700 W
+PAR_TIMEOUT_S = 900.0   # the supervisor's deadline for a launch of ranks
+PAR_GROUP_TIMEOUT_S = 600.0   # a rank's wait in a collective
 
 
 class SmokeFailure(Exception):
@@ -2517,9 +2548,9 @@ def _timed_ckpt_io(torch, ckpt_lib, io):
                        "bytes": _dir_bytes(where)})
         return where
 
-    def timed_restore(ckpt_dir, step, tree_like):
+    def timed_restore(ckpt_dir, step, tree_like, **kw):
         t0 = time.perf_counter()
-        got = real_restore(ckpt_dir, step, tree_like)
+        got = real_restore(ckpt_dir, step, tree_like, **kw)
         torch.cuda.synchronize()
         io.append({"op": "restore", "step": step,
                    "seconds": time.perf_counter() - t0,
@@ -3568,7 +3599,386 @@ def phase_state_space(torch, ops, dev, card, hybrid=None, ssm=None,
     return path
 
 
+# --------------------------------------------------------------------- #
+# phase 15: the training substrate's parallelism across ranks
+# --------------------------------------------------------------------- #
+def _par_optimizer(steps):
+    """The launcher's AdamW and cosine schedule, with eps 1e-4: Adam
+    divides each gradient by its root mean square plus eps, and at the
+    default 1e-8 the reduction-order noise of ~1e-8-sized gradients
+    becomes ±lr steps (ROADMAP "Parity traps")."""
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    return AdamW(lr=cosine_schedule(PAR_LR, max(steps // 20, 1), steps),
+                 eps=PAR_EPS)
+
+
+def _par_config(spec):
+    from repro_torch.configs import get_config, get_reduced
+    cfg = get_reduced(spec["arch"]) if spec["reduced"] else \
+        get_config(spec["arch"])
+    return cfg.replace(**spec.get("overrides", {}))
+
+
+def _par_pipeline(cfg, spec):
+    from repro_torch.data.pipeline import TokenPipeline
+    return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"],
+                         global_batch=spec["global_batch"], seed=0)
+
+
+def _par_reference(torch, spec, compute_dtype, dev, out_dir=None):
+    """One process's ``spec["steps"]`` steps of the job on ``dev``: the
+    losses and step walls, and (with ``out_dir``) the final parameters
+    written there as one ``.npy`` a leaf, then freed."""
+    import numpy as np
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.train import steps as steps_lib
+
+    cfg = _par_config(spec).replace(compute_dtype=compute_dtype)
+    opt = _par_optimizer(spec["steps"])
+    pipe = _par_pipeline(cfg, spec)
+    params = model_lib.init_params(cfg, 0, device=dev)
+    state = opt.init(params)
+    step, accum = steps_lib.make_train_step(
+        cfg, opt, global_batch=spec["global_batch"])
+    losses, walls = [], []
+    for i in range(spec["steps"]):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, pipe.batch(i))
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    if out_dir is not None:
+        for i, (_, leaf) in enumerate(flatten_with_path(params)):
+            np.save(os.path.join(out_dir, f"{i}.npy"),
+                    leaf.detach().cpu().numpy())
+    del params, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "step_walls_s": walls, "accum": accum}
+
+
+class _Collectives:
+    """``torch.distributed.all_reduce`` / ``all_gather_into_tensor``
+    wrapped to add each call's seconds (synchronised on both sides)
+    and bytes (the tensor's) while ``on``."""
+
+    def __init__(self, torch, dist):
+        self.torch, self.dist, self.on = torch, dist, False
+        self.seconds, self.bytes, self.calls = 0.0, 0, 0
+        self.real = {n: getattr(dist, n) for n in
+                     ("all_reduce", "all_gather_into_tensor")}
+        for name, fn in self.real.items():
+            setattr(dist, name, self._wrap(fn))
+
+    def _wrap(self, fn):
+        def timed(tensor, *args, **kw):
+            if not self.on:
+                return fn(tensor, *args, **kw)
+            src = args[0] if fn is self.real["all_gather_into_tensor"] \
+                else tensor
+            self._sync(src)
+            t0 = time.perf_counter()
+            out = fn(tensor, *args, **kw)
+            self._sync(src)
+            self.seconds += time.perf_counter() - t0
+            self.bytes += src.numel() * src.element_size()
+            self.calls += 1
+            return out
+        return timed
+
+    def _sync(self, t):
+        if t.device.type == "cuda":
+            self.torch.cuda.synchronize(t.device)
+
+    def take(self):
+        out = {"seconds": self.seconds, "bytes": self.bytes,
+               "calls": self.calls}
+        self.seconds, self.bytes, self.calls = 0.0, 0, 0
+        return out
+
+    def close(self):
+        for name, fn in self.real.items():
+            setattr(self.dist, name, fn)
+
+
+def _par_dp_leg(torch, spec, compute_dtype, dev, col, ref_dir=None):
+    """This rank's leg of the data-parallel job
+    (``steps.make_dp_train_step``: replicated parameters, each rank its
+    rows of every microbatch, the f32 gradient sums all-reduced over
+    gloo on the card's tensors): each step's loss, wall and collective
+    seconds and bytes; with ``ref_dir`` the final parameters against
+    the one process's, leaf by leaf; then one more step under the
+    profiler for busy time and kernels."""
+    import numpy as np
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.train import steps as steps_lib
+
+    cfg = _par_config(spec).replace(compute_dtype=compute_dtype)
+    opt = _par_optimizer(spec["steps"])
+    pipe = _par_pipeline(cfg, spec)
+    params = model_lib.init_params(cfg, 0, device=dev)
+    state = opt.init(params)
+    step, accum = steps_lib.make_dp_train_step(
+        cfg, opt, global_batch=spec["global_batch"])
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    for i in range(spec["steps"]):
+        col.on = True
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, pipe.batch(i))
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        col.on = False
+        rows.append({"loss": loss, "wall_s": wall, **{
+            f"collective_{k}": v for k, v in col.take().items()}})
+    out = {"steps": rows, "accum": accum}
+    if ref_dir is not None:
+        worst, big, diff = 0.0, 0.0, 0.0
+        worst_leaf = None
+        for i, (path, leaf) in enumerate(flatten_with_path(params)):
+            want = torch.from_numpy(np.load(os.path.join(
+                ref_dir, f"{i}.npy"))).to(dev)
+            d = float((leaf.double() - want.double()).abs().max())
+            b = float(want.abs().max())
+            diff, big = max(diff, d), max(big, b)
+            if d / max(b, 1e-12) > worst:
+                worst, worst_leaf = d / max(b, 1e-12), path
+            del want
+        out.update(params_rel=diff / big, worst_leaf_rel=worst,
+                   worst_leaf=worst_leaf)
+    if on_card:
+        out["peak_cuda_bytes"] = torch.cuda.max_memory_allocated(dev)
+        state_box = [params, state]
+
+        def one():
+            state_box[0], state_box[1], _ = step(
+                state_box[0], state_box[1], pipe.batch(spec["steps"]))
+
+        wall_ms = 1e3 * min(r["wall_s"] for r in rows[1:] or rows)
+        out["profiled_step"] = _busy(torch, one, wall_ms, n=1)
+        del state_box
+    del params, state
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_psum_leg(torch, spec, dev, col):
+    """``compressed_psum`` at the full gradient tree's shapes between
+    the ranks: each rank its own seeded gradients a step (different on
+    every rank), ``spec["psum_steps"]`` steps of error feedback; at the
+    first step (no error yet) each leaf's compressed mean against the
+    plain ``all_reduce`` mean (within ``scale_shared / 2`` and f32
+    rounding), and over all steps the summed means against the summed
+    plain means (within the largest step's bound: what is left is the
+    last step's error), with each reduction's seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import grad_compression as gc
+    from repro_torch.pytree import leaves
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = mesh_lib.make_mesh((world,), ("data",), device=dev)
+    cfg = _par_config(spec)
+    shapes = [tuple(x.shape) for x in leaves(
+        model_lib.init_params(cfg, 0, device="meta"))]
+    n = sum(math.prod(s) for s in shapes)
+    error = [torch.zeros(s, device=dev) for s in shapes]
+    sum_c = [torch.zeros(s, device=dev) for s in shapes]
+    sum_p = [torch.zeros(s, device=dev) for s in shapes]
+    worst_miss, bound_max, rows = 0.0, 0.0, []
+    for t in range(spec["psum_steps"]):
+        gen = torch.Generator(device=dev).manual_seed(1000 * t + rank)
+        grads = [torch.randn(s, generator=gen, device=dev) *
+                 (1.0 + rank) for s in shapes]
+        scales = torch.stack([(g + e).abs().max().clamp(min=1e-12) / 127.0
+                              for g, e in zip(grads, error)])
+        dist.all_reduce(scales, op=dist.ReduceOp.MAX)
+        plain = [g.clone() for g in grads]
+        col.on = True
+        for p in plain:
+            dist.all_reduce(p)
+        plain_c = col.take()
+        mean, error = gc.compressed_psum(mesh, ("data",), grads, error)
+        comp_c = col.take()
+        col.on = False
+        for i, (m, p, s) in enumerate(zip(mean, plain, scales.tolist())):
+            p.div_(world)
+            if t == 0:      # no error fed back yet: one reduction's bound
+                miss = float((m - p).abs().max())
+                worst_miss = max(worst_miss, miss / (s / 2))
+                _require(miss <= s / 2 * (1 + 1e-5) + 1e-6,
+                         f"compressed mean off the plain mean by "
+                         f"{miss:.3g} at leaf {i} (scale {s:.3g})")
+            sum_c[i].add_(m)
+            sum_p[i].add_(p)
+            bound_max = max(bound_max, s / 2)
+        del grads, plain, mean
+        rows.append({"plain": plain_c, "compressed": comp_c})
+    drift = max(float((a - b).abs().max()) for a, b in zip(sum_c, sum_p))
+    _require(drift <= bound_max * (1 + 1e-5) + 1e-5,
+             f"error feedback: Σ compressed off Σ plain by {drift:.3g} "
+             f"(one step's bound {bound_max:.3g})")
+    del error, sum_c, sum_p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"elements": n, "leaves": len(shapes), "steps": rows,
+            "sum_drift": drift, "one_step_bound": bound_max,
+            "first_step_worst_miss_over_half_scale": worst_miss,
+            # per rank and step, bytes sent + received, counted from the
+            # algorithms (not measured): int8 all-gather n·W; a ring
+            # all-reduce of f32 2·(W−1)/W·4n each way
+            "wire_bytes_compressed": n * world,
+            "wire_bytes_plain": 2 * 2 * (world - 1) * 4 * n // world}
+
+
+def _parallel_worker(spec) -> int:
+    """One rank of phase 15, started by ``launch_local_fleet``: joins the
+    gloo group, runs the data-parallel legs (f32, then the config's own
+    compute dtype) and the compressed reduction, and prints one JSON
+    line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = mesh_lib.init_fleet_group(PAR_GROUP_TIMEOUT_S)
+    dev = mesh_lib.rank_device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    col = _Collectives(torch, dist)
+    out = {"rank": rank, "device": str(dev)}
+    try:
+        out["f32"] = _par_dp_leg(torch, spec, "float32", dev, col,
+                                 ref_dir=spec["ref_dir"])
+        out["own_dtype"] = _par_dp_leg(torch, spec, spec["own_dtype"], dev,
+                                       col)
+        out["psum"] = _par_psum_leg(torch, spec, dev, col)
+        out["ok"] = True
+    except SmokeFailure as exc:
+        out.update(ok=False, error=str(exc))
+    finally:
+        col.close()
+    print(json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0 if out["ok"] else 1
+
+
+def phase_parallel(torch, ops, dev, card, spec=None):
+    """Phase 15: the training substrate's parallelism on PAR_RANKS ranks
+    sharing the card (``launch_local_fleet``: fresh interpreters, one
+    gloo group through a ``file://`` store, a supervisor timeout).
+    (a) qwen1.5-0.5B at full width: one process's PAR_SPEC job on the
+    card first (f32 compute, then the config's bf16), its results kept
+    as host numpy and its memory freed; then the ranks run it as data
+    parallelism with replicated parameters — the form the first card
+    call decided (gloo's functional collectives, which DTensor issues,
+    crash on CUDA tensors; its ``all_reduce`` and
+    ``all_gather_into_tensor`` work) — and each rank's f32 losses and
+    final parameters are held to the one process's at PAR_TOL, its
+    bf16 losses at PAR_BF16_TOL; (b) ``compressed_psum`` at qwen's full
+    gradient tree between the ranks, with different seeded gradients
+    on each. ``spec`` overrides PAR_SPEC (the CPU rehearsal passes a
+    reduced one).
+    Returns the phase's kernel launches (none: the dense training path
+    and the reductions are plain PyTorch and gloo, as the reference's
+    are plain jnp and XLA collectives)."""
+    import shutil
+
+    from repro_torch.launch import simdev
+
+    spec = dict(PAR_SPEC, **(spec or {}))
+    spec["device"] = None if dev.type == "cuda" else str(dev)
+    spec.setdefault("own_dtype", _par_config(spec).compute_dtype)
+    t_phase = time.perf_counter()
+    before = ops.launch_counts()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        spec["ref_dir"] = os.path.join(root, "ref")
+        os.makedirs(spec["ref_dir"])
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        one = {"f32": _par_reference(torch, spec, "float32", dev,
+                                     spec["ref_dir"]),
+               "own_dtype": _par_reference(torch, spec, spec["own_dtype"],
+                                           dev)}
+        if dev.type == "cuda":
+            one["peak_cuda_bytes"] = torch.cuda.max_memory_allocated()
+        ref_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        res = simdev.launch_local_fleet(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--parallel-worker", json.dumps(spec)], PAR_RANKS,
+            timeout=PAR_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        workers = []
+        for r in res:
+            try:
+                workers.append(simdev.last_json_line(r.stdout))
+            except ValueError:
+                workers.append({"rank": r.rank, "ok": False,
+                                "error": r.stderr_tail})
+        bad = [w for w in workers if not w.get("ok")]
+        _require(not bad, f"parallel ranks: {json.dumps(bad)[:2000]}")
+        rows = []
+        for w in workers:
+            got = [s["loss"] for s in w["f32"]["steps"]]
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(got, one["f32"]["losses"])]
+            _require(max(rel) <= PAR_TOL and
+                     w["f32"]["params_rel"] <= PAR_TOL,
+                     f"rank {w['rank']} f32: losses {got} vs "
+                     f"{one['f32']['losses']}, params rel "
+                     f"{w['f32']['params_rel']:.3g}")
+            own = [s["loss"] for s in w["own_dtype"]["steps"]]
+            own_rel = [abs(a - b) / abs(b) for a, b in
+                       zip(own, one["own_dtype"]["losses"])]
+            _require(max(own_rel) <= PAR_BF16_TOL and
+                     all(map(math.isfinite, own)),
+                     f"rank {w['rank']} {spec['own_dtype']}: losses {own} "
+                     f"vs {one['own_dtype']['losses']}")
+            rows.append({"rank": w["rank"], "f32_loss_rel": rel,
+                         "own_dtype_loss_rel": own_rel, **w})
+        _line({"phase": "parallel_dp", "config": spec["arch"],
+               "reduced": spec["reduced"], "ranks": PAR_RANKS,
+               "on": "one card" if dev.type == "cuda" else str(dev),
+               "form": "B: replicated parameters, gradients all-reduced",
+               "global_batch": spec["global_batch"],
+               "seq_len": spec["seq_len"], "steps": spec["steps"],
+               "own_dtype": spec["own_dtype"], "tol": PAR_TOL,
+               "own_dtype_tol": PAR_BF16_TOL, "one_process": one,
+               "one_process_seconds": ref_s,
+               "ranks_seconds": ranks_s,
+               "workers": [{k: v for k, v in r.items() if k != "psum"}
+                           for r in rows], "card": card})
+        _line({"phase": "parallel_psum", "ranks": PAR_RANKS,
+               "workers": [{"rank": w["rank"], **w["psum"]}
+                           for w in workers], "card": card})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    path = _deltas(ops.launch_counts(), before)
+    _line({"phase": "parallel", "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return path
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return _parallel_worker(json.loads(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -3634,12 +4044,13 @@ def main() -> int:
                                      chip_mod, var, dev, card)
         family_launches = phase_families(torch, ops, ref, tcl, dev, card)
         state_launches = phase_state_space(torch, ops, dev, card)
+        parallel_launches = phase_parallel(torch, ops, dev, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
                           fleet_launches, rank_launches, deploy_launches,
                           lm_launches, train_launches, family_launches,
-                          state_launches):
+                          state_launches, parallel_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

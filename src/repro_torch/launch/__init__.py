@@ -4,9 +4,14 @@
     worker processes (one per rank), the heartbeat-board file
     convention shared with :mod:`repro_torch.fleet.ha`;
   * :mod:`repro_torch.launch.mesh` — the fleet's ``"chip"`` mesh over
-    ranks and the gloo control-plane group.
+    ranks and the gloo control-plane group; the training substrate's
+    (pod, data, model) ``DeviceMesh``;
+  * :mod:`repro_torch.launch.rules` — logical-axis → mesh-axis rules;
+  * :mod:`repro_torch.launch.specs` — shapes (``meta``) and placements
+    of parameters, optimizer state, batches and caches;
+  * :mod:`repro_torch.launch.train` — the training launcher, one
+    process or one rank of a group.
 
-Port of the fleet half of ``repro.launch``; the training substrate's
-launchers (rules, specs, train, pipeline, dry run, roofline) are
-ROADMAP Queue 1 item 9.
+Port of ``repro.launch``; its pipeline, dry run and roofline are
+ROADMAP Queue 1 item 9g.
 """

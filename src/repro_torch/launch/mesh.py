@@ -28,16 +28,24 @@ Design decisions:
    seconds — with the 30-minute default a stalled (not dead) peer would
    hang its survivors for half an hour.
 
-``make_production_mesh``, ``make_debug_mesh``, ``dp_degree`` and
-``tp_degree`` belong to the training substrate (ROADMAP Queue 1 item
-9) and are not ported yet.
+The training substrate's meshes (:func:`make_production_mesh`,
+:func:`make_debug_mesh`) are ``torch.distributed.device_mesh.DeviceMesh``
+objects over the group's ranks, one rank per mesh position, with the
+reference's axis names (``pod``, ``data``, ``model``): the device type
+is this rank's (:func:`rank_device`: ``cpu`` when asked for, else the
+card). Their collectives ride the same gloo group (decision 1: a
+one-card machine cannot run NCCL between two ranks). The rule table
+reads only a mesh's axis names and sizes (:func:`mesh_axis_sizes`), so
+a :class:`MeshShape` stands in for a production mesh of 256 or 512
+positions where no such group exists.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -236,3 +244,64 @@ def mesh_spans_processes(mesh: FleetMesh) -> bool:
     signal that a fleet serves its rows rank by rank
     (``stream_local``) under a lockstep router."""
     return mesh.n_processes > 1
+
+
+# ------------------------------------------------------------------- #
+# the training substrate's (pod, data, model) meshes
+# ------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes without its ranks: what the rule
+    table reads (:func:`mesh_axis_sizes`), for planning a mesh larger
+    than the process group at hand."""
+    mesh_dim_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+              device: DeviceLike = None):
+    """A ``DeviceMesh`` of ``shape`` over every rank of the group
+    (rank-major, as ``jax.make_mesh`` orders devices). Collective."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    if process_count() != n:
+        raise ValueError(
+            f"a {dict(zip(axes, shape))} mesh needs {n} ranks; this "
+            f"process group has {process_count()} (launch them with "
+            f"repro_torch.launch.simdev.launch_local_fleet)")
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        # before the mesh: it would otherwise pick cuda:LOCAL_RANK
+        torch.cuda.set_device(dev)
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_debug_mesh(n_devices: Optional[int] = None, model: int = 2, *,
+                    device: DeviceLike = None):
+    """A (data, model) mesh over the group's ranks — for tests and the
+    launcher; ``model`` is cut to a divisor of the rank count."""
+    n = n_devices or process_count()
+    model = math.gcd(model, n)
+    return make_mesh((n // model, model), ("data", "model"), device)
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or a :class:`MeshShape`."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def dp_degree(mesh) -> int:
+    sizes = mesh_axis_sizes(mesh)
+    return sizes.get("data", 1) * sizes.get("pod", 1)
+
+
+def tp_degree(mesh) -> int:
+    return mesh_axis_sizes(mesh).get("model", 1)

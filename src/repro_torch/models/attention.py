@@ -1,10 +1,13 @@
 """GQA attention: chunked prefill, ring-buffer windowed KV caches,
 gemma-style logit softcaps, RoPE, QKV bias.
 
-Port of ``repro.models.attention`` on one device (the reference's
-logical sharding annotations have no counterpart here; ROADMAP Queue 1
-item 9 maps them onto torch meshes). The same arithmetic in the same
-dtypes: scores and the weighted sum accumulate in f32 whatever the
+Port of ``repro.models.attention``, with the reference's logical
+sharding annotations (``repro_torch.sharding``: nothing without a
+mesh; under one, each projection weight is redistributed whole but for
+its TP dim before its product — FSDP's gather of the ``embed`` dim,
+which DTensor would otherwise meet by splitting the activations' model
+dim and summing bf16 partial products). The same arithmetic in the
+same dtypes: scores and the weighted sum accumulate in f32 whatever the
 compute dtype (the reference's ``preferred_element_type=f32``), and a
 bf16 KV cache is read beside f32 queries by upcasting it, where JAX
 promotes implicitly.
@@ -24,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, softcap
+from repro_torch.sharding import shard
 
 NEG_INF = -2.0e38
 
@@ -50,6 +54,20 @@ def attn_init(generators, cfg, dtype: torch.dtype, *,
     return p
 
 
+def attn_specs(cfg) -> Dict:
+    s = {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv_heads", None),
+        "wv": ("embed", "kv_heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ("heads", None)
+        s["bk"] = ("kv_heads", None)
+        s["bv"] = ("kv_heads", None)
+    return s
+
+
 # --------------------------------------------------------------------- #
 # core attend
 # --------------------------------------------------------------------- #
@@ -71,6 +89,7 @@ def _attend_block(q, k, v, q_pos, k_pos, *, window, cap, scale):
     scores = torch.einsum("bqkgd,btkd->bkgqt", q.to(f32),
                           k.to(f32)) * scale
     scores = softcap(scores, cap)
+    scores = shard(scores, "batch", "act_kv", None, None, "act_kvseq")
     mask = (k_pos[:, None, :] <= q_pos[:, :, None]) & (k_pos[:, None, :] >= 0)
     if window is not None and int(window) > 0:
         mask = mask & (k_pos[:, None, :] > (q_pos[:, :, None] - int(window)))
@@ -125,6 +144,15 @@ def init_attn_cache(cfg, batch: int, cache_len: int, dtype: torch.dtype,
                 "vs": torch.zeros(sshp, dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def attn_cache_specs(cfg) -> Dict:
+    s = {"k": ("batch", "act_kvseq", "act_kv", None),
+         "v": ("batch", "act_kvseq", "act_kv", None)}
+    if cfg.kv_cache_dtype == "int8":
+        s["ks"] = ("batch", "act_kvseq", "act_kv")
+        s["vs"] = ("batch", "act_kvseq", "act_kv")
+    return s
 
 
 def _ring_positions(pos: torch.Tensor, T: int) -> torch.Tensor:
@@ -183,9 +211,13 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     scale = cfg.attn_scale if cfg.attn_scale else dh ** -0.5
 
     if project is None:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+        # FSDP's gather: each weight whole but for its TP dim
+        q = torch.einsum("bsd,dhk->bshk", x,
+                         shard(p["wq"].to(dt), None, "heads", None))
+        k = torch.einsum("bsd,dhk->bshk", x,
+                         shard(p["wk"].to(dt), None, "kv_heads", None))
+        v = torch.einsum("bsd,dhk->bshk", x,
+                         shard(p["wv"].to(dt), None, "kv_heads", None))
     else:
         q = project("wq", x).reshape(B, S, H, dh)
         k = project("wk", x).reshape(B, S, KH, dh)
@@ -201,6 +233,9 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         k = torch.repeat_interleave(k, cfg.kv_repeat, dim=2)
         v = torch.repeat_interleave(v, cfg.kv_repeat, dim=2)
     q = q.reshape(B, S, KH_eff, G, dh)
+    q = shard(q, "batch", None, "act_kv", None, None)
+    k = shard(k, "batch", "act_kvseq", "act_kv", None)
+    v = shard(v, "batch", "act_kvseq", "act_kv", None)
 
     new_cache = None
     if mode == "decode":
@@ -237,6 +272,9 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
                 new_cache["ks"] = cache["ks"].index_copy(1, idx, ks_new)
                 new_cache["vs"] = cache["vs"].index_copy(1, idx, vs_new)
             k_pos = _ring_positions(pos, T)[None, :].expand(B, T)
+        for name in ("k", "v"):
+            new_cache[name] = shard(new_cache[name], "batch", "act_kvseq",
+                                    "act_kv", None)
         if quant:
             k_att = _dequant_kv(new_cache["k"], new_cache["ks"], dt)
             v_att = _dequant_kv(new_cache["v"], new_cache["vs"], dt)
@@ -263,7 +301,8 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
 
     out = out.reshape(B, S, H, dh)
     if project is None:
-        out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+        out = torch.einsum("bshk,hkd->bsd", out,
+                           shard(p["wo"].to(dt), "heads", None, None))
     else:
         out = project("wo", out.reshape(B, S, H * dh))
     return out, new_cache

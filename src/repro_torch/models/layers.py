@@ -1,10 +1,22 @@
 """Shared primitive layers (plain PyTorch on tensors, dict params).
 
 Port of ``repro.models.layers``: the same arithmetic in the same order
-and dtypes. ``dense_init``/``embed_init`` draw a truncated normal on
-[-2, 2] from a ``torch.Generator``; the reference's ``jax.random``
-draws cannot be replayed, so comparisons hand weights across
+and dtypes, and the same logical sharding annotations
+(``repro_torch.sharding.shard``: nothing without a mesh).
+``dense_init``/``embed_init`` draw a truncated normal on [-2, 2] from a
+``torch.Generator``; the reference's ``jax.random`` draws cannot be
+replayed, so comparisons hand weights across
 (``repro_torch.models.model.params_from_numpy``).
+
+Under a mesh each weight is redistributed whole but for its TP dim
+before its product (FSDP's gather of the ``embed`` dim: DTensor would
+otherwise split the activations' model dim and sum bf16 partial
+products, which rounds otherwise than one product), and one operand is
+redistributed where DTensor has no working rule: ``cross_entropy``
+gathers the label's logit from logits whose vocab dim is made whole
+first (``shard(logits, "batch", None, None)``), since DTensor's gather
+on a vocab-sharded dim fails to reduce its masked partial result
+(torch 2.13).
 """
 from __future__ import annotations
 
@@ -12,6 +24,8 @@ import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.sharding import shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -117,13 +131,21 @@ def mlp_init(generators, d_model: int, d_ff: int, dtype: torch.dtype, *,
     }
 
 
+def mlp_specs() -> dict:
+    return {"w1": ("embed", "ff"), "w3": ("embed", "ff"),
+            "w2": ("ff", "embed")}
+
+
 def mlp_apply(p: dict, x: torch.Tensor, act: str,
               compute_dtype: torch.dtype) -> torch.Tensor:
     x = x.to(compute_dtype)
-    h = torch.matmul(x, p["w1"].to(compute_dtype))
-    g = torch.matmul(x, p["w3"].to(compute_dtype))
+    # FSDP's gather: each weight whole but for its TP dim
+    h = torch.matmul(x, shard(p["w1"].to(compute_dtype), None, "ff"))
+    g = torch.matmul(x, shard(p["w3"].to(compute_dtype), None, "ff"))
     h = act_fn(act)(h) * g
-    return torch.matmul(h, p["w2"].to(compute_dtype))
+    h = shard(h, "batch", None, "ff")  # seq unsharded inside the block (SP
+    #                                    only at block boundaries)
+    return torch.matmul(h, shard(p["w2"].to(compute_dtype), "ff", None))
 
 
 # --------------------------------------------------------------------- #
@@ -131,7 +153,8 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str,
 # --------------------------------------------------------------------- #
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens].to(compute_dtype)
+    table = shard(table, "vocab", None)         # FSDP's gather
+    return shard(table[tokens].to(compute_dtype), "batch", "seq", None)
 
 
 def lm_logits(h: torch.Tensor, head_w: torch.Tensor,
@@ -141,8 +164,10 @@ def lm_logits(h: torch.Tensor, head_w: torch.Tensor,
     reference's ``preferred_element_type=f32`` (products of bf16 values
     are exact in f32)."""
     f32 = torch.float32
-    logits = torch.matmul(h.to(f32), head_w.to(h.dtype).to(f32))
-    return softcap(logits, final_cap)
+    head_w = shard(head_w.to(h.dtype), None, "vocab")   # FSDP's gather
+    logits = torch.matmul(h.to(f32), head_w.to(f32))
+    logits = softcap(logits, final_cap)
+    return shard(logits, "batch", None, "vocab")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -164,7 +189,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     valid = labels >= 0
     safe_labels = torch.where(valid, labels, 0)
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
+    ll = torch.gather(shard(logits, "batch", None, None), -1,
+                      safe_labels[..., None])[..., 0]
     nll = (logz - ll) * valid
     denom = torch.clamp(valid.sum(), min=1)
     acc = ((torch.argmax(logits, -1) == safe_labels) * valid).sum() / denom

@@ -16,7 +16,9 @@ runs on the device its parameters live on.
 Weights: :func:`init_params` draws each leaf from a ``torch.Generator``
 of the target device, seeded by the splitmix64 mix of (seed, leaf,
 layer) — deterministic for a seed and a device type (a CPU and a CUDA
-init of one seed differ). The reference's threefry draws cannot be
+init of one seed differ). On the ``meta`` device it gives every leaf's
+shape and dtype and allocates nothing (``launch.specs``, the analogue
+of ``jax.eval_shape``). The reference's threefry draws cannot be
 replayed; :func:`params_from_numpy` carries its parameter tree across
 instead.
 """
@@ -34,6 +36,7 @@ from repro_torch.models.layers import (cdtype, cross_entropy, dense_init,
                                        pdtype, rms_norm)
 from repro_torch.models.xlstm import slstm_ff_width
 from repro_torch.runtime import DeviceLike, resolve_device
+from repro_torch.sharding import shard
 from repro_torch.variability.noise import stream_seed
 
 Params = Dict[str, Any]
@@ -49,12 +52,20 @@ def _device_of(params: Params) -> torch.device:
 # --------------------------------------------------------------------- #
 # params
 # --------------------------------------------------------------------- #
+def _target(device: DeviceLike) -> torch.device:
+    """``resolve_device``, or ``meta`` for shapes without storage."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Params:
     """Seeded parameters on ``device`` (default ``cuda``)."""
-    dev = resolve_device(device)
+    dev = _target(device)
+    gen_dev = "cpu" if dev.type == "meta" else dev
 
     def gen(*words) -> torch.Generator:
-        return torch.Generator(device=dev).manual_seed(
+        return torch.Generator(device=gen_dev).manual_seed(
             stream_seed(seed, *words))
 
     dt = pdtype(cfg)
@@ -72,6 +83,34 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Params:
                                                      cfg.padded_vocab), dt,
                                         device=dev)}
     return p
+
+
+def param_specs(cfg) -> Params:
+    """Each parameter leaf's logical axis names, in the parameters'
+    structure (``repro_torch.sharding`` maps them onto a mesh)."""
+    stack = tf.get_stack(cfg)
+    s: Params = {
+        "embed": {"table": ("vocab", "embed")},
+        "stack": _with_stack_lead(cfg, stack.specs(cfg)),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = {"w": ("embed", "vocab")}
+    return s
+
+
+def _with_stack_lead(cfg, specs):
+    """Stack specs get a leading (layer) axis of None; hybrid/xlstm
+    specs already encode their own leading axes except the group axis
+    (and the hybrid's shared block, which is not stacked)."""
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
+        return tf.lead_specs(specs)
+    if cfg.family == "hybrid":
+        return {"groups": tf.lead_specs(specs["groups"]),
+                "shared": specs["shared"]}
+    if cfg.family == "ssm":
+        return {"groups": tf.lead_specs(specs["groups"])}
+    raise ValueError(cfg.family)
 
 
 def params_from_numpy(cfg, tree, *, device: DeviceLike = None) -> Params:
@@ -113,7 +152,7 @@ def _embed_in(cfg, params, batch, dtype: torch.dtype) -> torch.Tensor:
                          _tokens(batch["tokens"], dev), dtype)
     if cfg.scale_embed:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
-    return h
+    return shard(h, "batch", "seq", None)
 
 
 def _head(cfg, params, h: torch.Tensor) -> torch.Tensor:
@@ -193,7 +232,11 @@ def init_cache(cfg, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16, *,
                device: DeviceLike = None):
     return tf.get_stack(cfg).init_cache(cfg, batch, cache_len, dtype,
-                                        resolve_device(device))
+                                        _target(device))
+
+
+def cache_specs(cfg):
+    return tf.get_stack(cfg).cache_specs(cfg)
 
 
 def cache_axes(cfg):

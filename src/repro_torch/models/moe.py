@@ -28,9 +28,10 @@ Top-k is a stable descending sort cut to k: on tied probabilities it
 keeps the lower expert index first, as ``jax.lax.top_k`` does
 (``torch.topk`` does not promise an order on ties).
 
-The reference's ``shard(...)`` constraints do nothing without a mesh;
-they belong to the sharding slice (ROADMAP Queue 1 item 9e) and are
-left out here, as is ``moe_specs``.
+The reference's ``shard(...)`` constraints stand at its places
+(``repro_torch.sharding``: nothing without a mesh) and ``moe_specs``
+gives the parameters' logical axes; a sharded MoE train step is not
+checked yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.models.layers import act_fn, dense_init
+from repro_torch.sharding import shard
 
 # the generator order of ``moe_init``'s leaves
 MOE_LEAVES = ("router", "w1", "w3", "w2", "shared_w1", "shared_w3",
@@ -74,6 +76,19 @@ def moe_init(generators: Sequence[torch.Generator], cfg,
                              device=device),
         }
     return p
+
+
+def moe_specs(cfg) -> Dict:
+    s = {
+        "router": ("embed", None),
+        "w1": ("exp", "embed", None),
+        "w3": ("exp", "embed", None),
+        "w2": ("exp", None, "embed"),
+    }
+    if cfg.num_shared_experts:
+        s["shared"] = {"w1": ("embed", "ff"), "w3": ("embed", "ff"),
+                       "w2": ("ff", "embed")}
+    return s
 
 
 def capacity(tokens: int, cfg) -> int:
@@ -117,12 +132,14 @@ def dispatch(expert_ids: torch.Tensor, E: int, C: int
     return flat_slot.reshape(*lead, E, C), valid
 
 
-def _experts(p: Dict, cfg, x_e: torch.Tensor) -> torch.Tensor:
-    """(..., E, C, d) gathered tokens through each expert's GLU MLP."""
+def _experts(p: Dict, cfg, x_e: torch.Tensor, names) -> torch.Tensor:
+    """(..., E, C, d) gathered tokens through each expert's GLU MLP;
+    ``names``: the logical axes of the (..., E, C, ·) blocks."""
     dt = x_e.dtype
+    x_e = shard(x_e, *names)
     h = torch.matmul(x_e, p["w1"].to(dt))
     g = torch.matmul(x_e, p["w3"].to(dt))
-    h = act_fn(cfg.act)(h) * g
+    h = shard(act_fn(cfg.act)(h) * g, *names)
     return torch.matmul(h, p["w2"].to(dt))
 
 
@@ -143,12 +160,13 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
         y, aux = _moe_grouped(p, cfg, x.reshape(G, T // G, d))
     else:
         y, aux = _moe_tokens(p, cfg, x.reshape(T, d))
-    y = y.reshape(B, S, d)
+    y = shard(y.reshape(B, S, d), "batch", "seq", None)
 
     if cfg.num_shared_experts:
         sh = p["shared"]
         hs = act_fn(cfg.act)(torch.matmul(x, sh["w1"].to(dt)))
         hs = hs * torch.matmul(x, sh["w3"].to(dt))
+        hs = shard(hs, "batch", None, "ff")
         y = y + torch.matmul(hs, sh["w2"].to(dt))
     return y, aux
 
@@ -175,7 +193,9 @@ def _moe_tokens(p: Dict, cfg, xt: torch.Tensor
     gates_ec = (gates_ec.reshape(E, C) * valid).to(torch.float32)
 
     x_e = xt[token_ids.reshape(-1)].reshape(E, C, d)
-    y_e = _experts(p, cfg, x_e) * gates_ec[..., None].to(dt)
+    names = ("exp", "cap", None)
+    y_e = _experts(p, cfg, x_e, names) * gates_ec[..., None].to(dt)
+    y_e = shard(y_e, *names)
 
     # combine: invalid slots land in row T, which is dropped
     seg = torch.where(valid, token_ids, T).reshape(-1)
@@ -196,6 +216,7 @@ def _moe_grouped(p: Dict, cfg, xg: torch.Tensor
     G, Tg, d = xg.shape
     E, K = cfg.num_experts, cfg.top_k
     C = capacity(Tg, cfg)
+    xg = shard(xg, "batch", None, None)
 
     probs, gate_vals, expert_ids = route(p, cfg, xg)          # (G, Tg, ·)
     me = probs.mean(dim=1)                                    # (G, E)
@@ -211,13 +232,15 @@ def _moe_grouped(p: Dict, cfg, xg: torch.Tensor
                          choice.reshape(G, -1)].reshape(G, E, C) * valid
 
     x_e = xg[g_idx, token_ids.reshape(G, -1)].reshape(G, E, C, d)
-    y_e = _experts(p, cfg, x_e) * gates_ec[..., None].to(dt)
+    names = ("batch", "exp", None, None)
+    y_e = _experts(p, cfg, x_e, names) * gates_ec[..., None].to(dt)
+    y_e = shard(y_e, *names)
 
     seg = torch.where(valid, token_ids, Tg) + \
         (Tg + 1) * torch.arange(G, device=xg.device)[:, None, None]
     y = torch.zeros((G * (Tg + 1), d), dtype=dt, device=xg.device)
     y = y.index_add(0, seg.reshape(-1), y_e.reshape(G * E * C, d))
-    y = y.reshape(G, Tg + 1, d)[:, :Tg]
+    y = shard(y.reshape(G, Tg + 1, d)[:, :Tg], "batch", None, None)
 
     dropped = 1.0 - valid.sum() / max(G * Tg * K, 1)
     return y, {"aux_loss": aux_loss, "drop_frac": dropped.to(torch.float32)}

@@ -1,13 +1,14 @@
 """Mamba2 block — chunked SSD (state-space dual) formulation.
 
-Port of ``repro.models.ssm``: the same parameters, arithmetic and
-dtypes. Training/prefill use the chunked algorithm: intra-chunk terms
-are dense products, the inter-chunk state is a short sequential loop
-over the chunks. Every exponential is of a non-positive argument
-(cumulative log decay); the intra-chunk decay matrix is masked to -inf
-above the diagonal *before* ``exp`` (its upper triangle would overflow,
-and its gradient would be NaN). The scan computes in f32 whatever the
-compute dtype.
+Port of ``repro.models.ssm``: the same parameters, arithmetic,
+dtypes and logical sharding annotations (``repro_torch.sharding``:
+nothing without a mesh). Training/prefill use the chunked algorithm:
+intra-chunk terms are dense products, the inter-chunk state is a short
+sequential loop over the chunks. Every exponential is of a
+non-positive argument (cumulative log decay); the intra-chunk decay
+matrix is masked to -inf above the diagonal *before* ``exp`` (its
+upper triangle would overflow, and its gradient would be NaN). The
+scan computes in f32 whatever the compute dtype.
 
 Decode is the single-step recurrence ``h <- a h + dt·x ⊗ B``,
 ``y = C·h + D x`` (:func:`ssd_step`), with a ring conv state for the
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (causal_conv1d, conv_update,
                                        dense_init, pdtype, rms_norm)
+from repro_torch.sharding import shard
 
 # one generator per drawn leaf of a Mamba2 block, keyed by its index here
 MAMBA_LEAVES = ("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj",
@@ -98,6 +100,21 @@ def mamba_init(generator: Callable[[int], torch.Generator], cfg, *,
         "dt_bias": dt_bias.to(dt),
         "norm": torch.ones((d_in,), dtype=dt, device=device),
         "out_proj": dense("out_proj", (d_in, d), fan_in=d_in),
+    }
+
+
+def mamba_specs(cfg) -> Dict:
+    return {
+        "z_proj": ("embed", "ff"), "x_proj": ("embed", "ff"),
+        "b_proj": ("embed", None), "c_proj": ("embed", None),
+        "dt_proj": ("embed", "ssm_heads"),
+        "conv_x_w": (None, "ff"), "conv_x_b": ("ff",),
+        "conv_b_w": (None, None), "conv_b_b": (None,),
+        "conv_c_w": (None, None), "conv_c_b": (None,),
+        "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("ff",),
+        "out_proj": ("ff", "embed"),
     }
 
 
@@ -198,7 +215,8 @@ def ssd_inputs(p: Dict, cfg, x: torch.Tensor):
                               p["conv_c_b"].to(dt_)))
     dts = F.softplus(dtr.to(torch.float32) + p["dt_bias"].to(torch.float32))
     A = torch.exp(p["A_log"].to(torch.float32))
-    return (z, xr, br, cr, xc.reshape(Bsz, L, H, P), dts, A,
+    xs = shard(xc.reshape(Bsz, L, H, P), "batch", None, "ff", None)
+    return (z, xr, br, cr, xs, dts, A,
             bc.reshape(Bsz, L, G, N), cc.reshape(Bsz, L, G, N))
 
 
@@ -256,6 +274,7 @@ def mamba_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
 
     # gated RMSNorm (mamba2: norm(y * silu(z)))
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = shard(y, "batch", None, "ff")
     return torch.matmul(y, p["out_proj"].to(dt_)), new_cache
 
 
@@ -273,3 +292,10 @@ def init_mamba_cache(cfg, batch: int, dtype: torch.dtype,
         "ssm": torch.zeros((batch, H, P, N), dtype=torch.float32,
                            device=device),
     }
+
+
+def mamba_cache_specs(cfg) -> Dict:
+    return {"conv_x": ("batch", None, "ff"),
+            "conv_b": ("batch", None, None),
+            "conv_c": ("batch", None, None),
+            "ssm": ("batch", "ssm_heads", None, None)}

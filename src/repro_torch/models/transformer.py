@@ -23,9 +23,15 @@ group, in the hybrid and xLSTM stacks) is rematerialised as
 Stack API, as the reference's:
 
   init(generator, cfg, device)                   -> stacked params
+  specs(cfg)          -> logical axis names per param (no stack axis)
   apply(p, cfg, h, positions, mode, cache)       -> (h, new_cache, aux)
   init_cache(cfg, batch, cache_len, dtype, device) -> cache
+  cache_specs(cfg)    -> logical axis names per cache leaf
   cache_axes(cfg)     -> each cache leaf's (lane axis, ring axis or None)
+
+The residual stream is annotated ``shard(h, "batch", "seq", None)`` at
+the reference's block boundaries (``repro_torch.sharding``: nothing
+without a mesh).
 
 ``cache_axes`` is what the serving engine's lane surgery
 (``serving.kvcache``) reads: the attention rings' lane is axis 1 and
@@ -51,7 +57,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import mlp_apply, mlp_init, pdtype, rms_norm
+from repro_torch.models.layers import (mlp_apply, mlp_init, mlp_specs,
+                                       pdtype, rms_norm)
+from repro_torch.sharding import shard
 
 # one generator per parameter leaf of a block, keyed by these codes; an
 # MoE block's MLP leaves take the codes after them (``moe.MOE_LEAVES``)
@@ -63,6 +71,13 @@ _LEAVES = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 RING_AXES = (1, 2)
 STATE_AXES_2 = (2, None)
 STATE_AXES_1 = (1, None)
+
+
+def lead_specs(specs, n: int = 1):
+    """Specs with ``n`` leading (stack) axes of None."""
+    if isinstance(specs, dict):
+        return {k: lead_specs(v, n) for k, v in specs.items()}
+    return (None,) * n + specs
 
 
 def layer_slice(tree, layer: int):
@@ -98,6 +113,19 @@ def _block_init(generator: Callable[[int], torch.Generator], cfg,
     return p
 
 
+def _block_specs(cfg, use_moe: bool):
+    s = {
+        "attn": attn.attn_specs(cfg),
+        "attn_norm": (None,),
+        "mlp_norm": (None,),
+        "mlp": moe_mod.moe_specs(cfg) if use_moe else mlp_specs(),
+    }
+    if cfg.post_block_norm:
+        s["attn_post"] = (None,)
+        s["mlp_post"] = (None,)
+    return s
+
+
 def _block_apply(p, cfg, h, *, positions, mode, cache, window,
                  use_moe=False, project=None, mlp_fn=None):
     """project/mlp_fn: optional linear-projection overrides (see
@@ -111,7 +139,7 @@ def _block_apply(p, cfg, h, *, positions, mode, cache, window,
                                        project=project)
     if cfg.post_block_norm:
         a_out = rms_norm(a_out, p["attn_post"], cfg.norm_eps)
-    h = h + a_out
+    h = shard(h + a_out, "batch", "seq", None)
 
     m_in = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
     aux = {}
@@ -123,7 +151,7 @@ def _block_apply(p, cfg, h, *, positions, mode, cache, window,
         m_out = mlp_apply(p["mlp"], m_in, cfg.act, m_in.dtype)
     if cfg.post_block_norm:
         m_out = rms_norm(m_out, p["mlp_post"], cfg.norm_eps)
-    return h + m_out, new_cache, aux
+    return shard(h + m_out, "batch", "seq", None), new_cache, aux
 
 
 def _save_plain_matmuls(ctx, op, *args, **kwargs):
@@ -182,6 +210,10 @@ class DenseStack:
         return _stack_trees(layers)
 
     @classmethod
+    def specs(cls, cfg):
+        return _block_specs(cfg, cls.use_moe)
+
+    @classmethod
     def apply(cls, p, cfg, h, *, positions, mode,
               cache: Optional[Dict] = None):
         windows = _layer_windows(cfg)
@@ -210,6 +242,10 @@ class DenseStack:
                    dtype: torch.dtype, device: torch.device) -> Dict:
         one = attn.init_attn_cache(cfg, batch, cache_len, dtype, device)
         return _zeros_stacked(one, cfg.num_layers)
+
+    @classmethod
+    def cache_specs(cls, cfg):
+        return lead_specs(attn.attn_cache_specs(cfg))
 
     @classmethod
     def cache_axes(cls, cfg):
@@ -257,6 +293,12 @@ class HybridStack:
                                       cfg, device)}
 
     @classmethod
+    def specs(cls, cfg):
+        return {"groups": {"mamba": lead_specs(ssm_mod.mamba_specs(cfg)),
+                           "mamba_norm": (None, None)},
+                "shared": _block_specs(cfg, use_moe=False)}
+
+    @classmethod
     def apply(cls, p, cfg, h, *, positions, mode,
               cache: Optional[Dict] = None):
         G, per = cls._group_geometry(cfg)
@@ -272,6 +314,7 @@ class HybridStack:
                     layer_slice(c_g["mamba"], i))
                 h = h + out
                 mamba.append(c_m)
+            h = shard(h, "batch", "seq", None)
             h, c_a, _ = _block_apply(
                 p["shared"], cfg, h, positions=positions, mode=mode,
                 cache=None if c_g is None else c_g["attn"], window=window)
@@ -289,6 +332,11 @@ class HybridStack:
         one = attn.init_attn_cache(cfg, batch, attn_len, dtype, device)
         return {"mamba": _zeros_stacked(mamba, G, per),
                 "attn": _zeros_stacked(one, G)}
+
+    @classmethod
+    def cache_specs(cls, cfg):
+        return {"mamba": lead_specs(ssm_mod.mamba_cache_specs(cfg), 2),
+                "attn": lead_specs(attn.attn_cache_specs(cfg))}
 
     @classmethod
     def cache_axes(cls, cfg):
@@ -326,6 +374,11 @@ class XLSTMStack:
         return {"groups": _stack_trees(groups)}
 
     @classmethod
+    def specs(cls, cfg):
+        return {"groups": {"mlstm": lead_specs(xlstm_mod.mlstm_specs(cfg)),
+                           "slstm": xlstm_mod.slstm_specs(cfg)}}
+
+    @classmethod
     def apply(cls, p, cfg, h, *, positions, mode,
               cache: Optional[Dict] = None):
         G, n_m = cls._group_geometry(cfg)
@@ -342,6 +395,7 @@ class XLSTMStack:
             h, c_s = xlstm_mod.slstm_apply(
                 p_g["slstm"], cfg, h, mode=mode,
                 cache=None if c_g is None else c_g["slstm"])
+            h = shard(h, "batch", "seq", None)
             return h, {"mlstm": stack_caches(mlstm), "slstm": c_s}
 
         return _apply_groups(group, cfg, mode, h, p["groups"], cache, G)
@@ -354,6 +408,11 @@ class XLSTMStack:
         slstm = xlstm_mod.init_slstm_cache(cfg, batch, device)
         return {"mlstm": _zeros_stacked(mlstm, G, n_m),
                 "slstm": _zeros_stacked(slstm, G)}
+
+    @classmethod
+    def cache_specs(cls, cfg):
+        return {"mlstm": lead_specs(xlstm_mod.mlstm_cache_specs(cfg), 2),
+                "slstm": lead_specs(xlstm_mod.slstm_cache_specs(cfg))}
 
     @classmethod
     def cache_axes(cls, cfg):

@@ -2,12 +2,13 @@
 stabilisation) and sLSTM (scalar memory, sequential scan with a
 block-diagonal recurrence), after arXiv:2405.04517.
 
-Port of ``repro.models.xlstm``: the same parameters, arithmetic and
-dtypes. The chunked mLSTM (:func:`mlstm_cell_chunked`) is the parallel
-form: intra-chunk dense products and a short inter-chunk loop; its
-plain per-token form is :func:`mlstm_cell_step` run over the sequence
-(:func:`mlstm_recurrence`). The sLSTM is a Python loop over the
-sequence, one :func:`_slstm_step` a token.
+Port of ``repro.models.xlstm``: the same parameters, arithmetic,
+dtypes and logical sharding annotations (``repro_torch.sharding``:
+nothing without a mesh). The chunked mLSTM (:func:`mlstm_cell_chunked`)
+is the parallel form: intra-chunk dense products and a short
+inter-chunk loop; its plain per-token form is :func:`mlstm_cell_step`
+run over the sequence (:func:`mlstm_recurrence`). The sLSTM is a
+Python loop over the sequence, one :func:`_slstm_step` a token.
 
 Two details the caches depend on, kept from the reference:
   * the mLSTM matrix state ``C`` is stored in bf16 in a cache, even
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (act_fn, causal_conv1d, conv_update,
                                        dense_init, pdtype, rms_norm)
 from repro_torch.models.ssm import _last_inputs, chunk_geometry
+from repro_torch.sharding import shard
 
 NEG = -1e30
 
@@ -116,6 +118,7 @@ def mlstm_cell_chunked(q, k, v, log_i, log_f, state, chunk: int):
     s = torch.where(mask, s, NEG)
     m_intra = torch.amax(s, dim=-1)                     # (B, nc, H, Q)
     qk = torch.einsum("bcqhd,bckhd->bchqk", qc, kc)
+    qk = shard(qk, "batch", "cchunk", None, None, None)
 
     # chunk-local summaries for the state recurrence
     g = bl[:, :, None, :] - b + li                      # (B, nc, Q, H)
@@ -267,6 +270,34 @@ def mlstm_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
     return torch.matmul(h * F.silu(z), p["w_down"].to(dt)), new_cache
 
 
+def mlstm_specs(cfg) -> Dict:
+    return {
+        "norm": (None,), "w_up_x": ("embed", "ff"), "w_up_z": ("embed", "ff"),
+        "conv_w": (None, "ff"), "conv_b": ("ff",),
+        "wq": ("embed", "ff"), "wk": ("embed", "ff"), "wv": ("embed", "ff"),
+        "wi": ("ff", None), "bi": (None,), "wf": ("ff", None), "bf": (None,),
+        "skip": ("ff",), "hnorm": ("ff",), "w_down": ("ff", "embed"),
+    }
+
+
+def mlstm_cache_specs(cfg) -> Dict:
+    return {"conv": ("batch", None, "ff"),
+            "C": ("batch", None, None, "lstm_dh"),
+            "n": ("batch", None, None), "m": ("batch", None)}
+
+
+def slstm_specs(cfg) -> Dict:
+    return {"norm": (None,), "Wg": ("embed", "ff"),
+            "R": (None, None, None, None),
+            "b": ("ff",), "gnorm": (None,), "ffn_norm": (None,),
+            "w1": ("embed", "ff"), "w2": ("ff", "embed")}
+
+
+def slstm_cache_specs(cfg) -> Dict:
+    return {"h": ("batch", None), "c": ("batch", None),
+            "n": ("batch", None), "m": ("batch", None)}
+
+
 def init_mlstm_cache(cfg, batch: int, dtype: torch.dtype,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     dm, Hl, dh = _mdims(cfg)
@@ -375,6 +406,7 @@ def slstm_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
     # gelu FFN (proj factor 4/3)
     hf = rms_norm(y, p["ffn_norm"], cfg.norm_eps)
     hf = act_fn("gelu")(torch.matmul(hf, p["w1"].to(dt)))
+    hf = shard(hf, "batch", None, "ff")
     return y + torch.matmul(hf, p["w2"].to(dt)), new_cache
 
 

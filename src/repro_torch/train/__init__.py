@@ -1,4 +1,6 @@
 """Training substrate, ported from ``repro.train``: ``steps`` (train,
-eval, prefill and decode steps), ``checkpoint`` (the reference's atomic
-on-disk layout), ``train_loop`` (auto-resume, watchdog, metrics).
-``elastic`` belongs to the sharding slice (ROADMAP Queue 1 item 9)."""
+eval, prefill and decode steps; sharded under a mesh), ``checkpoint``
+(the reference's atomic on-disk layout, reshard-on-load),
+``train_loop`` (auto-resume, watchdog, metrics) and ``elastic``
+(resume on another mesh). The launchers' pipeline, dry run and
+roofline are ROADMAP Queue 1 item 9g."""

@@ -26,11 +26,17 @@ Guarantees, as the reference's:
   * integrity — every leaf's dtype and shape are in the manifest and
     checked on restore, and a crc32 catches corruption.
 
-Arrays are gathered to the host and stored unsharded; ``restore``
-places each leaf on the device of the corresponding leaf of
-``tree_like`` (the one-device form of the reference's reshard-on-load).
-A save whose step is already published writes nothing (the reference
-writes the staging directory, then discards it).
+Arrays are gathered to the host and stored unsharded (global arrays).
+Under a process group ``save`` is collective: every rank gathers each
+DTensor leaf whole (``full_tensor``, itself a collective — never on
+rank 0 alone), rank 0 alone writes, and a barrier holds every rank
+until the step is published. ``restore`` places each leaf on the
+device of the corresponding leaf of ``tree_like``, or, given
+``placements`` (a tree of DTensor placements of the same structure,
+``repro_torch.sharding.tree_shardings``' output), distributes it onto
+the mesh — the reference's reshard-on-load, so a run resumes on another
+mesh (``train.elastic``). A save whose step is already published writes
+nothing (the reference writes the staging directory, then discards it).
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.pytree import flatten_with_path, unflatten_like
+from repro_torch.pytree import flatten_with_path, tree_map, unflatten_like
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -63,9 +69,29 @@ def save(ckpt_dir: str, step: int, tree, *,
          pipeline_state: Optional[Dict] = None,
          extra: Optional[Dict] = None,
          keep: int = 3) -> str:
-    """Write the checkpoint for ``step``; returns the published path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write the checkpoint for ``step``; returns the published path.
+    Collective under a process group (see the module docstring)."""
+    import torch.distributed as dist
+
+    grouped = dist.is_available() and dist.is_initialized()
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not grouped:
+        return _write(ckpt_dir, final, step, flatten_with_path(tree),
+                      pipeline_state, extra, keep)
+    from torch.distributed.tensor import DTensor
+
+    # every rank gathers (collectives), rank 0 writes
+    flat = [(path, leaf.full_tensor() if isinstance(leaf, DTensor)
+             else leaf) for path, leaf in flatten_with_path(tree)]
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, final, step, flat, pipeline_state, extra, keep)
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, flat, pipeline_state,
+           extra, keep: int) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
     if os.path.exists(final):
         _gc(ckpt_dir, keep)
         return final
@@ -75,7 +101,7 @@ def save(ckpt_dir: str, step: int, tree, *,
     arrays: Dict[str, np.ndarray] = {}
     manifest = {"step": step, "pipeline": pipeline_state or {},
                 "extra": extra or {}, "leaves": {}}
-    for path, leaf in flatten_with_path(tree):
+    for path, leaf in flat:
         arr = _to_numpy(leaf)
         arrays[path] = arr
         manifest["leaves"][path] = {
@@ -117,10 +143,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, tree_like) -> Tuple[Any, Dict]:
+def restore(ckpt_dir: str, step: int, tree_like, *, placements=None,
+            mesh=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``tree_like``: every leaf a tensor
     on the device of the corresponding ``tree_like`` leaf (the CPU where
-    that leaf is no tensor). Returns (tree, manifest)."""
+    that leaf is no tensor, or is on ``meta``), or, given ``placements``,
+    a DTensor on ``mesh`` (default: the installed one) placed so —
+    reshard-on-load. Returns (tree, manifest)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -134,8 +163,17 @@ def restore(ckpt_dir: str, step: int, tree_like) -> Tuple[Any, Dict]:
                 raise ValueError(f"corrupt leaf {keypath}")
             if _crc(arr) != meta["crc"]:
                 raise ValueError(f"checksum mismatch at {keypath}")
-            dev = like.device if isinstance(like, torch.Tensor) else "cpu"
+            dev = like.device if isinstance(like, torch.Tensor) and \
+                like.device.type != "meta" else "cpu"
             if not arr.flags.writeable:
                 arr = np.array(arr)
             leaves.append(torch.from_numpy(arr).to(dev))
-    return unflatten_like(tree_like, leaves), manifest
+    tree = unflatten_like(tree_like, leaves)
+    if placements is not None:
+        from repro_torch import sharding
+
+        mesh = mesh or sharding.current_mesh()
+        tree = sharding.tree_distribute(
+            tree_map(lambda t: t.to(mesh.device_type), tree), placements,
+            mesh)
+    return tree, manifest

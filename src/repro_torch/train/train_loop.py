@@ -12,9 +12,11 @@ reference's ``jax.block_until_ready``), so it covers the card's work.
     fleet controller would evict or replace the slow host — here it
     logs and counts.
 
-The reference's ``shardings=`` (reshard-on-load against a mesh) has no
-counterpart on one card: a restore places each leaf on the device of
-the leaf it replaces.
+``placements=`` (the reference's ``shardings=``) reshards a resumed
+checkpoint onto the installed mesh; without it a restore places each
+leaf on the device of the leaf it replaces. Under a process group every
+rank runs the loop, and its checkpoints are collective
+(``checkpoint.save``).
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ def _wait(t: torch.Tensor) -> None:
 
 def run(loop_cfg: TrainLoopConfig, *, train_step: Callable,
         params, opt_state, pipeline: TokenPipeline,
-        log_path: Optional[str] = None,
+        placements=None, log_path: Optional[str] = None,
         on_straggler: Optional[Callable[[int, float], None]] = None
         ) -> Dict[str, Any]:
     """Run (or resume) training; returns final state + stats."""
@@ -74,7 +76,8 @@ def run(loop_cfg: TrainLoopConfig, *, train_step: Callable,
     latest = ckpt_lib.latest_step(loop_cfg.ckpt_dir)
     if latest is not None:
         (params, opt_state), manifest = ckpt_lib.restore(
-            loop_cfg.ckpt_dir, latest, (params, opt_state))
+            loop_cfg.ckpt_dir, latest, (params, opt_state),
+            placements=placements)
         start = manifest["step"]
         if manifest["pipeline"].get("seed", pipeline.seed) != \
                 pipeline.seed:

@@ -876,3 +876,169 @@ def test_gpu_state_space_engine_serves_each_requests_greedy(cuda, arch):
                 torch.tensor(len(p) + len(toks) - 1))
             toks.append(int(logits.argmax(-1)))
         assert got[uid] == toks, uid
+
+
+# ------------- the training substrate's reductions on the card ------------- #
+PARALLEL_WORKER = """
+import json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_reduced
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import model as model_lib
+from repro_torch.optim.adamw import AdamW, constant_schedule
+from repro_torch.optim.grad_compression import compressed_psum
+from repro_torch.pytree import leaves
+from repro_torch.train import steps as steps_lib
+
+torch.backends.cuda.matmul.allow_tf32 = False
+rank = mesh_lib.init_fleet_group(120)
+dev = mesh_lib.rank_device()
+torch.cuda.set_device(dev)
+world = dist.get_world_size()
+out = {"rank": rank, "device": str(dev)}
+
+# compressed_psum on CUDA tensors, different gradients on each rank
+mesh = mesh_lib.make_mesh((world,), ("data",))
+gen = torch.Generator(device=dev).manual_seed(rank)
+grads = {"w": torch.randn((300, 40), generator=gen, device=dev) * (1 + rank),
+         "b": torch.randn((17,), generator=gen, device=dev) * 1e-3}
+err = {k: torch.zeros_like(v) for k, v in grads.items()}
+scale = torch.stack([grads[k].abs().max() / 127.0 for k in sorted(grads)])
+dist.all_reduce(scale, op=dist.ReduceOp.MAX)
+plain = {k: v.clone() for k, v in grads.items()}
+for v in plain.values():
+    dist.all_reduce(v)
+mean, _ = compressed_psum(mesh, ("data",), grads, err)
+out["psum_miss_over_half_scale"] = max(
+    float((mean[k] - plain[k] / world).abs().max()) / float(s / 2)
+    for k, s in zip(sorted(grads), scale))
+out["psum_mean_sum"] = sum(float(v.double().sum()) for v in mean.values())
+
+# the data-parallel step against one process, on the card
+cfg = get_reduced("qwen1.5-0.5b").replace(compute_dtype="float32",
+                                          grad_accum=2)
+pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=16, global_batch=8,
+                     seed=0)
+opt = AdamW(lr=constant_schedule(1e-3), eps=1e-4)
+runs = {}
+for name in ("one", "dp"):
+    params = model_lib.init_params(cfg, 0, device=dev)
+    state = opt.init(params)
+    make = steps_lib.make_train_step if name == "one" else \\
+        steps_lib.make_dp_train_step
+    step, _ = make(cfg, opt, global_batch=8)
+    losses = []
+    for i in range(2):
+        params, state, m = step(params, state, pipe.batch(i))
+        losses.append(float(m["loss"]))
+    runs[name] = (losses, params)
+(l1, p1), (l2, p2) = runs["one"], runs["dp"]
+out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+out["params_rel"] = max(float((a - b).abs().max()) for a, b in
+                        zip(leaves(p2), leaves(p1))) / \\
+    max(float(b.abs().max()) for b in leaves(p1))
+print(json.dumps(out))
+"""
+
+
+def _parallel_ranks():
+    import sys
+
+    from repro_torch.launch import simdev
+    res = simdev.launch_local_fleet([sys.executable, "-c", PARALLEL_WORKER],
+                                    2, timeout=300.0)
+    for r in res:
+        assert r.returncode == 0, r.stderr_tail
+    return [simdev.last_json_line(r.stdout) for r in res]
+
+
+@pytest.mark.gpu
+def test_gpu_compressed_psum_and_dp_step_on_cuda_ranks(cuda):
+    """Two ranks share the card in one gloo group, every tensor on it:
+    ``compressed_psum`` of different gradients lands within scale/2 of
+    the plain ``all_reduce`` mean, the same on both ranks; the
+    data-parallel step (``make_dp_train_step``, 2 microbatches) of the
+    reduced qwen in f32 equals one process's 2 steps (losses and the
+    parameter tree within rel 1e-5)."""
+    out = _parallel_ranks()
+    assert {o["device"] for o in out} == {"cuda:0"}
+    assert out[0]["psum_mean_sum"] == out[1]["psum_mean_sum"]
+    for o in out:
+        assert o["psum_miss_over_half_scale"] <= 1 + 1e-5
+        assert o["loss_rel"] <= 1e-5 and o["params_rel"] <= 1e-5, o
+
+
+GLOO_WORKER = """
+import json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.launch import mesh as mesh_lib
+
+rank = mesh_lib.init_fleet_group(60)
+dev = mesh_lib.rank_device()
+torch.cuda.set_device(dev)
+out = {"rank": rank}
+x = torch.full((4,), 1.5 + rank, device=dev)
+dist.all_reduce(x)
+out["all_reduce"] = x.tolist()
+g = torch.empty(8, dtype=torch.int8, device=dev)
+dist.all_gather_into_tensor(g, torch.full((4,), 100 - rank,
+                                          dtype=torch.int8, device=dev))
+out["all_gather_into_tensor_int8"] = g.tolist()
+r = torch.empty(2, device=dev)
+dist.reduce_scatter_tensor(r, torch.arange(4.0, device=dev))
+out["reduce_scatter_tensor"] = r.tolist()
+try:
+    dist.all_reduce(torch.ones(4, dtype=torch.int16, device=dev))
+    out["all_reduce_int16"] = "accepted"
+except RuntimeError as exc:
+    out["all_reduce_int16"] = str(exc)
+print(json.dumps(out), flush=True)
+if sys.argv[1:] == ["dtensor"]:
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = mesh_lib.make_mesh((2,), ("data",))
+    w = distribute_tensor(torch.ones(8, 4, device=dev), mesh, [Shard(0)],
+                          src_data_rank=None)
+    print(json.dumps({"full": w.redistribute(mesh, [Replicate()])
+                      .to_local().sum().item()}), flush=True)
+"""
+
+
+def _gloo_ranks(*args):
+    import sys
+
+    from repro_torch.launch import simdev
+    return simdev.launch_local_fleet(
+        [sys.executable, "-c", GLOO_WORKER, *args], 2, timeout=120.0)
+
+
+@pytest.mark.gpu
+def test_gpu_gloo_collectives_on_cuda_tensors(cuda):
+    """What the port's reductions rest on: gloo takes the card's tensors
+    in ``all_reduce``, ``all_gather_into_tensor`` (int8: the compressed
+    wire) and ``reduce_scatter_tensor``, and refuses int16 (ROADMAP
+    R16: the reference's wire)."""
+    import json
+    res = _gloo_ranks()
+    for r in res:
+        assert r.returncode == 0, r.stderr_tail
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        assert out["all_reduce"] == [4.0] * 4
+        assert out["all_gather_into_tensor_int8"] == [100] * 4 + [99] * 4
+        assert out["reduce_scatter_tensor"] == [[0.0, 2.0], [4.0, 6.0]][
+            out["rank"]]
+        assert "Invalid scalar type" in out["all_reduce_int16"]
+
+
+@pytest.mark.gpu
+def test_gpu_dtensor_over_gloo_dies_on_cuda_tensors(cuda):
+    """Why CUDA ranks replicate the parameters (ROADMAP decision 6b):
+    DTensor's first redistribution over gloo on the card's tensors — a
+    functional collective — kills both ranks (SIGSEGV in
+    ``wait_tensor`` on torch 2.11). When this fails, the sharded
+    (DTensor) step can run on the card; see ROADMAP Queue 1 item 9h."""
+    res = _gloo_ranks("dtensor")
+    assert all(r.returncode != 0 for r in res), [r.stdout for r in res]
+    assert all('"full"' not in r.stdout for r in res)

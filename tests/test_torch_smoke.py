@@ -536,3 +536,34 @@ def test_smoke_state_space_phase_on_the_cpu(cpu_smoke, capsys, monkeypatch):
                                                                     2, 3]
     assert {r["op"] for r in ssm["checkpoint_io"]} == {"save", "restore"}
     assert set(launches.values()) == {0}
+
+
+def test_smoke_parallel_phase_on_the_cpu(cpu_smoke, capsys):
+    """Phase 15 on the CPU, cut to size: the reduced qwen's 3 steps (8 ×
+    16 tokens) in one process and on 2 gloo CPU ranks as data
+    parallelism with replicated parameters (f32 within rel 1e-5, bf16
+    losses within 1e-3), and ``compressed_psum`` at the reduced gradient
+    tree over 5 steps of error feedback. No kernel launches."""
+    smoke, ops = cpu_smoke
+    spec = {"reduced": True, "seq_len": 16}
+    launches = smoke.phase_parallel(torch, ops, torch.device("cpu"), "cpu",
+                                    spec=spec)
+    lines = _phase_lines(capsys.readouterr().out)
+    dp = lines["parallel_dp"]
+    assert dp["ranks"] == smoke.PAR_RANKS and dp["reduced"]
+    assert len(dp["one_process"]["f32"]["losses"]) == 3
+    for w in dp["workers"]:
+        assert max(w["f32_loss_rel"]) <= smoke.PAR_TOL
+        assert w["f32"]["params_rel"] <= smoke.PAR_TOL
+        assert max(w["own_dtype_loss_rel"]) <= smoke.PAR_BF16_TOL
+        assert w["f32"]["accum"] == 1       # the reduced config's
+        # the gradient all-reduce moved the f32 tree each step
+        assert all(s["collective_calls"] > 0 and s["collective_bytes"] > 0
+                   for s in w["f32"]["steps"])
+    psum = lines["parallel_psum"]["workers"]
+    assert len(psum) == smoke.PAR_RANKS
+    for w in psum:
+        assert len(w["steps"]) == 5
+        assert w["sum_drift"] <= w["one_step_bound"] * (1 + 1e-5) + 1e-5
+        assert w["wire_bytes_compressed"] * 4 == w["wire_bytes_plain"]
+    assert set(launches.values()) == {0}

@@ -455,6 +455,7 @@ def test_train_cli_on_the_cpu_then_resume(tmp_path):
 
 def test_train_cli_refuses_model_parallel():
     from repro_torch.launch import train as tlaunch
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    # one process is no mesh: it names the ranks --model-parallel needs
+    with pytest.raises(ValueError, match="mesh of at least 2 ranks"):
         tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                       "--model-parallel", "2"])
