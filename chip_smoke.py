@@ -207,9 +207,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      bound of the summed plain means; the seconds of each reduction
      and the wire bytes.
 
+ 16. launch tools: (a) the dry run (``repro_torch.launch.dryrun`` on
+     one position) predicts the full-width qwen1.5-0.5B train step (8 ×
+     128 tokens, 2 microbatches, bf16, full remat) and a 4-lane decode
+     step (cache 128) — peak bytes, FLOPs, the H100 roofline bound —
+     and the steps run on the card: the predicted peak within 10 % of
+     ``max_memory_allocated``, the bound no more than the profiler's
+     busy time, the useful FLOP share in (0, 1]; (b) the dry-run sweep
+     of every reduced arch × shape on the reference's 16×16 and
+     2×16×16 meshes (fake groups, the host's cores): each cell ok or
+     skipped with ``applicable``'s reason, the committed reduced qwen
+     and moonshot ``train_4k`` cells' ``model_flops`` and
+     ``cost.bytes_per_device`` reproduced; (c) qwen's 24 blocks as a
+     4-stage GPipe pipeline (``launch/pipeline.py``) on 4 ranks sharing
+     the card, f32, 8 × 128 tokens in 4 microbatches, every rank
+     within rel 1e-5 of one process's sequential forward; its wall,
+     bubble and the bytes at each boundary (the collective counter).
+
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–15 (phase 9: what the ranks report; a
-killed rank reports nothing; phases 14 and 15 launch none).
+(phases 2–3) and in phases 5–16 (phase 9: what the ranks report; a
+killed rank reports nothing; phases 14–16 launch none).
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -239,11 +256,18 @@ TOL_BF16 = 1e-2    # crossbar kernel, bf16 x: the kernel rounds the combined
 TOL_I8 = 1e-6      # fused int8: the same int32 sum and epilogue rounding
 BAND = 1e-5        # threshold units may flip only within this × max|pre|
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bound's rates
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12          # IEEE f32 on the CUDA cores (no TF32)
-TF32_FLOPS = 494.7e12      # TF32 tensor cores
-INT8_OPS = 1979e12
+# the bound's rates: the H100 SXM's spec-sheet peaks (dense), from the
+# port's roofline (one source); without ``src/`` beside this script
+# main() reports it and exits
+sys.path.insert(0, os.path.join(ROOT, "src"))
+try:
+    from repro_torch.launch import roofline as _sheet
+except ImportError:
+    _sheet = None
+HBM_BYTES_PER_S = _sheet and _sheet.HBM_BW
+F32_FLOPS = _sheet and _sheet.PEAK_F32      # IEEE f32, CUDA cores (no TF32)
+TF32_FLOPS = _sheet and _sheet.PEAK_TF32    # TF32 tensor cores
+INT8_OPS = _sheet and _sheet.PEAK_INT8
 TF32_PRODUCTS = 3          # the crossbar kernel's f32 route: 3×TF32
 
 DEEP = (784, 200, 100, 10)
@@ -350,6 +374,16 @@ PAR_BF16_TOL = 1e-3     # bf16 losses: the halves of a microbatch round
 #                         8.4e-5 measured on the H100 at 700 W
 PAR_TIMEOUT_S = 900.0   # the supervisor's deadline for a launch of ranks
 PAR_GROUP_TIMEOUT_S = 600.0   # a rank's wait in a collective
+LAUNCH_SPEC = {"arch": "qwen1.5-0.5b", "reduced": False, "global_batch": 8,
+               "seq_len": 128, "decode_lanes": 4, "decode_cache": 128,
+               "sweep_archs": None, "sweep_shapes": "all",
+               "sweep_meshes": ("single", "multi"),
+               "pipe_stages": 4, "pipe_microbatches": 4, "pipe_layers": None}
+LAUNCH_PEAK_TOL = 0.10  # phase 16(a): predicted vs measured peak
+LAUNCH_SWEEP_TIMEOUT_S = 900.0   # (b): one dry-run process's deadline
+PIPE_TOL = 1e-5         # (c): the pipeline vs the sequential forward
+PIPE_SEED = 16
+PIPE_TIMEOUT_S = 600.0
 
 
 class SmokeFailure(Exception):
@@ -3976,9 +4010,421 @@ def phase_parallel(torch, ops, dev, card, spec=None):
     return path
 
 
+# --------------------------------------------------------------------- #
+# phase 16: the launch tools
+# --------------------------------------------------------------------- #
+def _launch_config(spec):
+    from repro_torch.configs import get_config, get_reduced
+
+    return (get_reduced if spec["reduced"] else get_config)(spec["arch"])
+
+
+def _predict(cfg, shape):
+    """The dry run of one step on one position (``mesh=None``: the
+    one-process step, nothing placed): the prediction held against
+    the card."""
+    from repro_torch.launch import dryrun
+
+    r = dryrun.lower_cell(cfg, shape, None, verbose=False)
+    return {"peak_bytes": r["memory"]["peak_bytes_per_device"],
+            "state_bytes": r["memory"]["state_bytes"],
+            "flops": r["cost"]["flops_per_device"],
+            "bytes": r["cost"]["bytes_per_device"],
+            "bound_s": r["roofline"]["bound_s"],
+            "dominant": r["roofline"]["dominant"],
+            "model_flops": r["model_flops"],
+            "useful_flops_frac": r["useful_flops_frac"],
+            "run_s": r["compile_s"]}
+
+
+def _measure(torch, dev, make_args, step):
+    """One call of ``step`` on ``dev`` after a warm-up call on arguments
+    of its own (which leaves the libraries' workspaces allocated): its
+    wall, the peak of the memory allocated from before its arguments
+    (``make_args``) were made, and the card's busy time over a third
+    call."""
+    out = step(*make_args())
+    del out
+    before = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+    args = make_args()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = step(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    row = {"wall_ms": wall_ms}
+    if dev.type == "cuda":
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - before
+        del out
+        row.update(_busy(torch, lambda: step(*args), wall_ms, n=1))
+    return row
+
+
+def _launch_predicted_vs_measured(torch, spec, dev):
+    """(a): the dry run's peak, FLOPs and bound of a train step and a
+    decode step, then the steps on ``dev``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train import steps as steps_lib
+
+    cfg = _launch_config(spec)
+    B, S = spec["global_batch"], spec["seq_len"]
+    lanes, cache_len = spec["decode_lanes"], spec["decode_cache"]
+    pred = {"train": _predict(cfg, ShapeConfig("phase16_train", S, B,
+                                               "train")),
+            "decode": _predict(cfg, ShapeConfig("phase16_decode", cache_len,
+                                                lanes, "decode"))}
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
+    train, accum = steps_lib.make_train_step(cfg, opt, global_batch=B)
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                          global_batch=B, seed=0).batch(0)
+
+    def train_args():
+        params = model_lib.init_params(cfg, 0, device=dev)
+        return params, opt.init(params), batch
+
+    meas = {"train": _measure(torch, dev, train_args, train)}
+    decode = steps_lib.make_decode_step(cfg)
+
+    def decode_args():
+        return (model_lib.init_params(cfg, 0, device=dev),
+                model_lib.init_cache(cfg, lanes, cache_len, device=dev),
+                torch.zeros((lanes, 1), dtype=torch.int32, device=dev),
+                torch.tensor(cache_len // 2, dtype=torch.int32, device=dev))
+
+    meas["decode"] = _measure(torch, dev, decode_args, decode)
+    rows = {}
+    for k in ("train", "decode"):
+        p, m = pred[k], meas[k]
+        row = {"predicted": p, "measured": m}
+        _require(0.0 < p["useful_flops_frac"] <= 1.0,
+                 f"phase 16(a) {k}: useful FLOP share "
+                 f"{p['useful_flops_frac']}")
+        if dev.type == "cuda":
+            row["peak_rel"] = (p["peak_bytes"] - m["peak_bytes"]) / \
+                m["peak_bytes"]
+            _require(abs(row["peak_rel"]) <= LAUNCH_PEAK_TOL,
+                     f"phase 16(a) {k}: predicted peak {p['peak_bytes']} B "
+                     f"vs measured {m['peak_bytes']} B")
+            busy = m["device_busy_ms"]
+            _require(busy != "not measured" and
+                     p["bound_s"] * 1e3 <= busy,
+                     f"phase 16(a) {k}: bound {p['bound_s'] * 1e3} ms vs "
+                     f"busy {busy} ms")
+            row["bound_over_busy"] = p["bound_s"] * 1e3 / busy
+        rows[k] = row
+    rows["train"]["accum"] = accum
+    return rows
+
+
+def _launch_sweep(spec, out_dir):
+    """(b): every reduced arch × shape on the production meshes, one
+    dry-run process an (arch, mesh) (the fake group is a process's),
+    as many at a time as the host has cores."""
+    import subprocess as sp
+
+    from repro_torch.configs import ARCH_IDS
+
+    archs = spec["sweep_archs"] or ARCH_IDS
+    jobs = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", spec["sweep_shapes"], "--mesh", m, "--reduced",
+             "--out", out_dir] for a in archs for m in spec["sweep_meshes"]]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    width = max(1, min(len(jobs), os.cpu_count() or 1))
+    running, failed = [], []
+    while jobs or running:
+        while jobs and len(running) < width:
+            argv = jobs.pop(0)
+            running.append((argv, sp.Popen(argv, cwd=ROOT, env=env,
+                                           stdout=sp.PIPE, stderr=sp.PIPE,
+                                           text=True)))
+        argv, proc = running.pop(0)
+        try:
+            _, err = proc.communicate(timeout=LAUNCH_SWEEP_TIMEOUT_S)
+        except sp.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            err = "timed out"
+        if proc.returncode != 0:
+            failed.append((argv[4], argv[8], err[-1500:]))
+    cells = [json.load(open(os.path.join(out_dir, f)))
+             for f in sorted(os.listdir(out_dir)) if f.endswith(".json")]
+    return cells, failed
+
+
+def _check_sweep(cells, failed):
+    from repro_torch.configs import SHAPES_BY_NAME, applicable, get_reduced
+
+    _require(not failed, f"phase 16(b): dry-run processes failed: "
+                         f"{failed}")
+    for c in cells:
+        ok, reason = applicable(get_reduced(_arch_id(c["arch"])),
+                                SHAPES_BY_NAME[c["shape"]])
+        if c["status"] == "skip":
+            _require(not ok and c["reason"] == reason,
+                     f"phase 16(b): {c['arch']} {c['shape']} skipped: "
+                     f"{c.get('reason')}")
+        else:
+            _require(c["status"] == "ok", f"phase 16(b): {c['arch']} "
+                     f"{c['shape']} {c['mesh']}: {c.get('error')}")
+    for arch in ("qwen1.5-0.5b", "moonshot-v1-16b-a3b"):
+        with open(os.path.join(ROOT, "experiments", "dryrun",
+                               f"{arch}__train_4k__single.json")) as f:
+            want = json.load(f)
+        got = [c for c in cells if c["status"] == "ok" and
+               c["shape"] == "train_4k" and c["mesh"] == "16x16" and
+               _arch_id(c["arch"]) == arch]
+        _require(len(got) == 1, f"phase 16(b): no {arch} train_4k cell")
+        _require(got[0]["model_flops"] == want["model_flops"] and
+                 got[0]["cost"]["bytes_per_device"] ==
+                 want["cost"]["bytes_per_device"],
+                 f"phase 16(b): {arch}: model_flops "
+                 f"{got[0]['model_flops']} vs {want['model_flops']}, "
+                 f"bytes {got[0]['cost']['bytes_per_device']} vs "
+                 f"{want['cost']['bytes_per_device']}")
+
+
+def _arch_id(name):
+    """A registry id from a config's name (a reduced config is named
+    ``<family>-smoke``)."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+
+    for a in ARCH_IDS:
+        if name in (a, get_config(a).name, get_reduced(a).name):
+            return a
+    raise KeyError(name)
+
+
+def _pipe_config(spec):
+    cfg = _launch_config(spec).replace(compute_dtype="float32")
+    if spec["pipe_layers"]:
+        cfg = cfg.replace(num_layers=spec["pipe_layers"])
+    return cfg
+
+
+def _pipe_layers(torch, cfg, layers, dev):
+    """Blocks ``layers`` of ``init_params(cfg, 0)``'s stack, drawn on
+    their own from the same seed streams (nothing else is built)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer as tf
+
+    def gen(layer, leaf):
+        return torch.Generator(device=dev).manual_seed(
+            model_lib.stream_seed(0, model_lib._STACK, layer, leaf))
+
+    return tf._stack_trees([tf._block_init(
+        lambda i, _l=layer: gen(_l, i), cfg, dev) for layer in layers])
+
+
+def _pipe_blocks(cfg, p, h, first_layer):
+    """The dense stack's blocks of ``p`` over h (B, S, d), in order."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    B, S = h.shape[:2]
+    pos = torch.arange(S, device=h.device)[None].expand(B, S)
+    windows = tf._layer_windows(cfg)
+    for i in range(p["attn_norm"].shape[0]):
+        h, _, _ = tf._block_apply(tf.layer_slice(p, i), cfg, h, positions=pos,
+                                  mode="train", cache=None,
+                                  window=windows[first_layer + i])
+    return h
+
+
+def _pipe_input(torch, cfg, spec, dev):
+    g = torch.Generator(device=dev).manual_seed(PIPE_SEED)
+    return torch.randn((spec["global_batch"], spec["seq_len"], cfg.d_model),
+                       generator=g, device=dev, dtype=torch.float32)
+
+
+def _pipeline_worker(spec) -> int:
+    """One stage of phase 16(c), started by ``launch_local_fleet``:
+    builds its own blocks, runs ``pipeline_apply`` on the ``pod`` mesh
+    of the ranks, writes its output for the parent and prints one JSON
+    line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.pipeline import pipeline_apply, stage_index
+    from repro_torch.launch.roofline import CollectiveCounter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = mesh_lib.init_fleet_group(PAR_GROUP_TIMEOUT_S)
+    dev = mesh_lib.rank_device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = _pipe_config(spec)
+    n = spec["pipe_stages"]
+    mesh = mesh_lib.make_mesh((n,), ("pod",), "cpu")
+    s = stage_index("pod", mesh=mesh)
+    per = cfg.num_layers // n
+    layers = list(range(s * per, (s + 1) * per))
+    params = _pipe_layers(torch, cfg, layers, dev)
+    x = _pipe_input(torch, cfg, spec, dev)
+    with torch.no_grad():     # warm-up: the libraries' first calls
+        _pipe_blocks(cfg, params, x[:1], layers[0])
+    stats = {}
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CollectiveCounter() as c:
+        out = pipeline_apply(
+            lambda p, h: _pipe_blocks(cfg, p, h, layers[0]), params, x,
+            mesh=mesh, axis="pod", microbatches=spec["pipe_microbatches"],
+            stats=stats)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    torch.save(out.cpu(), os.path.join(spec["out_dir"], f"stage{s}.pt"))
+    print(json.dumps({"rank": rank, "stage": s, "layers": layers,
+                      "wall_s": wall, "by_op": c.stats.by_op,
+                      "counts": c.stats.counts, **stats}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch_pipeline(torch, spec, dev, root):
+    """(c): the dense stack's blocks as pipe_stages stages on as many
+    ranks sharing ``dev``, against one process's sequential forward."""
+    from repro_torch.launch import simdev
+    from repro_torch.launch.pipeline import bubble_fraction
+
+    cfg = _pipe_config(spec)
+    n, m = spec["pipe_stages"], spec["pipe_microbatches"]
+    _require(cfg.num_layers % n == 0, f"phase 16(c): {cfg.num_layers} "
+                                      f"layers do not split into {n}")
+    wspec = dict(spec, device=None if dev.type == "cuda" else str(dev),
+                 out_dir=root)
+    t0 = time.perf_counter()
+    res = simdev.launch_local_fleet(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--pipeline-worker", json.dumps(wspec)], n, timeout=PIPE_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    workers = []
+    for r in res:
+        _require(r.returncode == 0, f"phase 16(c): rank {r.rank}: "
+                                    f"{r.stderr_tail}")
+        workers.append(simdev.last_json_line(r.stdout))
+    x = _pipe_input(torch, cfg, spec, dev)
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        want = _pipe_blocks(cfg, _pipe_layers(
+            torch, cfg, range(cfg.num_layers), dev), x, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t1
+    want = want.cpu()
+    mb_bytes = spec["global_batch"] // m * spec["seq_len"] * \
+        cfg.d_model * 4
+    for w in workers:
+        got = torch.load(os.path.join(root, f"stage{w['stage']}.pt"))
+        w["rel"] = _rel(got, want)
+        _require(w["rel"] <= PIPE_TOL, f"phase 16(c): stage {w['stage']} "
+                                       f"rel {w['rel']:.3g}")
+        sends = w["counts"].get("collective-permute", 0)
+        w["boundary_bytes_per_microbatch"] = \
+            w["by_op"].get("collective-permute", 0.0) / sends if sends \
+            else None
+        _require(sends == (m if w["stage"] < n - 1 else 0) and
+                 (not sends or w["boundary_bytes_per_microbatch"] ==
+                  mb_bytes), f"phase 16(c): stage {w['stage']} sent "
+                             f"{w['by_op']} in {w['counts']}")
+    return {"stages": n, "microbatches": m,
+            "layers_per_stage": cfg.num_layers // n,
+            "bubble_fraction": bubble_fraction(n, m),
+            "boundary_bytes_per_microbatch": mb_bytes,
+            "ranks_seconds": ranks_s, "sequential_s": seq_s,
+            "pipeline_wall_s": max(w["wall_s"] for w in workers),
+            "tol": PIPE_TOL, "workers": workers}
+
+
+def phase_launch_tools(torch, ops, dev, card, spec=None):
+    """Phase 16: the launch tools. (a) the dry run's prediction of a
+    full-width qwen1.5-0.5B train step (LAUNCH_SPEC: 8 × 128 tokens,
+    its grad_accum 2, bf16 compute, full remat) and a 4-lane decode
+    step (cache 128) on one position (no mesh) — peak bytes, FLOPs,
+    the roofline bound — beside the steps run on the card: the peak of
+    ``max_memory_allocated`` within LAUNCH_PEAK_TOL, the bound no more
+    than the profiler's busy time, the useful FLOP share in (0, 1];
+    (b) the dry-run sweep of every reduced arch × shape on 16×16 and
+    2×16×16 (the reference's production meshes, fake groups of 256 and
+    512), each cell ok or skipped with ``applicable``'s reason, the
+    committed reduced qwen and moonshot ``train_4k`` cells'
+    ``model_flops`` and ``cost.bytes_per_device`` reproduced; (c) the
+    24 blocks as 4 stages × 6 layers on 4 ranks sharing the card
+    (``launch_local_fleet``), f32, 8 × 128 tokens in 4 microbatches,
+    each rank building only its own blocks, every rank's output within
+    PIPE_TOL of one process's sequential forward; the wall, the
+    bubble fraction and the bytes that cross each boundary (the
+    collective counter). ``spec`` overrides LAUNCH_SPEC (the CPU
+    rehearsal passes reduced ones). Returns the phase's kernel
+    launches (none: the dry run only counts, and the steps and the
+    pipeline are plain products, as the reference's are jnp)."""
+    import shutil
+
+    spec = dict(LAUNCH_SPEC, **(spec or {}))
+    t_phase = time.perf_counter()
+    before = ops.launch_counts()
+    root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        t0 = time.perf_counter()
+        steps = _launch_predicted_vs_measured(torch, spec, dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _line({"phase": "launch_dryrun_vs_card", "config": spec["arch"],
+               "reduced": spec["reduced"], "global_batch":
+               spec["global_batch"], "seq_len": spec["seq_len"],
+               "decode_lanes": spec["decode_lanes"], "decode_cache":
+               spec["decode_cache"], "peak_tol": LAUNCH_PEAK_TOL,
+               **steps, "seconds": time.perf_counter() - t0, "card": card})
+        t0 = time.perf_counter()
+        sweep_dir = os.path.join(root, "dryrun")
+        os.makedirs(sweep_dir)
+        cells, failed = _launch_sweep(spec, sweep_dir)
+        _check_sweep(cells, failed)
+        _line({"phase": "launch_dryrun_sweep", "cells": [
+            {k: c.get(k) for k in ("arch", "shape", "mesh", "status",
+                                   "reason")} |
+            ({"peak_gib": c["memory"]["peak_bytes_per_device"] / 2**30,
+              "dominant": c.get("roofline", {}).get("dominant"),
+              "bound_ms": c["roofline"]["bound_s"] * 1e3
+              if "roofline" in c else None, "run_s": c["compile_s"]}
+             if c["status"] == "ok" else {}) for c in cells],
+            "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        pipe = _launch_pipeline(torch, spec, dev, root)
+        _line({"phase": "launch_pipeline", "config": spec["arch"],
+               "reduced": spec["reduced"], **pipe,
+               "seconds": time.perf_counter() - t0, "card": card})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    path = _deltas(ops.launch_counts(), before)
+    _line({"phase": "launch_tools", "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return path
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         return _parallel_worker(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--pipeline-worker"]:
+        return _pipeline_worker(json.loads(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -4045,12 +4491,14 @@ def main() -> int:
         family_launches = phase_families(torch, ops, ref, tcl, dev, card)
         state_launches = phase_state_space(torch, ops, dev, card)
         parallel_launches = phase_parallel(torch, ops, dev, card)
+        launch_launches = phase_launch_tools(torch, ops, dev, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
                           fleet_launches, rank_launches, deploy_launches,
                           lm_launches, train_launches, family_launches,
-                          state_launches, parallel_launches):
+                          state_launches, parallel_launches,
+                          launch_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

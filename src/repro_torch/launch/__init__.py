@@ -10,8 +10,13 @@
   * :mod:`repro_torch.launch.specs` — shapes (``meta``) and placements
     of parameters, optimizer state, batches and caches;
   * :mod:`repro_torch.launch.train` — the training launcher, one
-    process or one rank of a group.
+    process or one rank of a group;
+  * :mod:`repro_torch.launch.roofline` — the H100's roofline terms of a
+    step and the collective counter;
+  * :mod:`repro_torch.launch.dryrun` — every (arch × shape × mesh)
+    cell's step counted on a fake group, allocating nothing;
+  * :mod:`repro_torch.launch.pipeline` — the GPipe schedule over the
+    ``pod`` axis, one stage a rank.
 
-Port of ``repro.launch``; its pipeline, dry run and roofline are
-ROADMAP Queue 1 item 9g.
+Port of ``repro.launch``.
 """

@@ -257,6 +257,10 @@ class MeshShape:
     mesh_dim_names: Tuple[str, ...]
     shape: Tuple[int, ...]
 
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
               device: DeviceLike = None):

@@ -20,13 +20,14 @@ runs this launcher with the same flags) joins the gloo group and builds
 ``kv_repeat`` for the mesh's TP degree, derives the rule table and
 places the parameters and AdamW state as DTensors; every rank runs the
 loop, and checkpoints are gathered on every rank and written by rank 0.
-It prints ``mesh: {...} (dp=…, tp=…)`` as the reference does. Ranks
-refuse, before they join the group, what ROADMAP item 9h has not yet
-checked: the families other than dense, vlm and audio (the MoE,
-hybrid and xLSTM stacks' sharded steps), and ranks on the card (there
-the group is gloo, since one card cannot run NCCL between two ranks,
-and gloo's functional collectives — the ones DTensor issues — crash on
-CUDA tensors; replicated data parallelism on the card is
+It prints ``mesh: {...} (dp=…, tp=…)`` as the reference does. Every
+family's sharded step is held to one process's on CPU ranks
+(``SHARDED_FAMILIES``: the dense, vlm and audio stacks, and since
+ROADMAP item 9h the MoE, hybrid and xLSTM stacks). Ranks on the card
+are refused before they join the group (there the group is gloo, since
+one card cannot run NCCL between two ranks, and gloo's functional
+collectives — the ones DTensor issues — crash on CUDA tensors;
+replicated data parallelism on the card is
 ``steps.make_dp_train_step``). One process has no mesh, and there
 ``--model-parallel`` above 1 raises, naming the ranks it would need.
 
@@ -68,7 +69,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 # seconds a rank waits for a peer in the rendezvous or a collective
 GROUP_TIMEOUT_S = 300.0
 # the families whose sharded step is held to one process's (ROADMAP 9h)
-SHARDED_FAMILIES = ("dense", "vlm", "audio")
+SHARDED_FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid", "ssm")
 
 
 def _ranks() -> int:

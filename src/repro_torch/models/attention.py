@@ -27,7 +27,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, softcap
-from repro_torch.sharding import shard
+from repro_torch.sharding import (axis_rules, blockwise, current_mesh,
+                                  from_local_part, gather_seq, local_part,
+                                  shard)
 
 NEG_INF = -2.0e38
 
@@ -102,7 +104,28 @@ def attend(q, k, v, q_pos, k_pos, *, window=None, cap=0.0, scale=1.0,
            q_chunk: int = 1024):
     """Chunked attention over the query axis (memory ~ Sq_chunk * T);
     each query row is independent, so the chunks compute the unchunked
-    values (to the rounding of another batched product)."""
+    values (to the rounding of another batched product).
+
+    Under a mesh (train and prefill, where only the batch and the KV
+    heads are split) each rank attends its own block of sequences and
+    heads as plain tensors: attention is independent across both, and
+    DTensor would otherwise fold the two split dims of each batched
+    product into one, which some of its versions refuse."""
+    if current_mesh() is None:
+        return _attend_chunks(q, k, v, q_pos, k_pos, window=window, cap=cap,
+                              scale=scale, q_chunk=q_chunk)
+    qn, kn = ("batch", None, "act_kv", None, None), \
+        ("batch", None, "act_kv", None)
+    parts = (local_part(q, *qn), local_part(k, *kn), local_part(v, *kn),
+             local_part(q_pos, "batch", None),
+             local_part(k_pos, "batch", None))
+    with axis_rules(None, {}):      # plain tensors: no constraint inside
+        out = _attend_chunks(*parts, window=window, cap=cap, scale=scale,
+                             q_chunk=q_chunk)
+    return from_local_part(out, *qn)
+
+
+def _attend_chunks(q, k, v, q_pos, k_pos, *, window, cap, scale, q_chunk):
     Sq = q.shape[1]
     if Sq <= q_chunk or Sq % q_chunk != 0:
         return _attend_block(q, k, v, q_pos, k_pos,
@@ -164,6 +187,30 @@ def _ring_positions(pos: torch.Tensor, T: int) -> torch.Tensor:
     return p - ((p % T - j) % T)
 
 
+def _stored(cache_len: int, k: torch.Tensor) -> torch.Tensor:
+    """:func:`_store_prefill`, each rank on its own rows and KV heads
+    under a mesh (``blockwise``: the pad and roll run along the whole
+    sequence)."""
+    names = ("batch", None, "act_kv", None)[:k.dim()]
+    return blockwise(lambda t: _store_prefill(cache_len, t),
+                     [(k, names)], out=names)
+
+
+def _write_slot(cache: torch.Tensor, idx: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """``cache`` (B, T, ...) with slot ``idx`` (a 1-element index) along
+    T set to ``new`` (B, 1, ...). Under a mesh, where the ring's T may
+    be split (decode's ``act_kvseq``), as a masked select: every rank
+    keeps its own slots (``index_copy`` on a split dim is not laid out
+    by every DTensor version)."""
+    if current_mesh() is None:
+        return cache.index_copy(1, idx, new)
+    T = cache.shape[1]
+    hit = torch.arange(T, device=idx.device) == idx
+    return torch.where(hit.reshape((1, T) + (1,) * (cache.dim() - 2)),
+                       new.to(cache.dtype), cache)
+
+
 def _store_prefill(cache_len: int, k: torch.Tensor) -> torch.Tensor:
     """Store a prefilled sequence (B, S, ...) into a ring of length T:
     zero-padded when it fits, else its last T positions, each at its
@@ -203,6 +250,7 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     QKV biases are still added here, so a projection backend must not
     fold them in.
     Returns (out (B, S, d), new_cache)."""
+    x = gather_seq(x)  # the sequence whole inside the block (SP)
     dt = x.dtype
     B, S, _ = x.shape
     H, KH, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -266,11 +314,11 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         else:
             pos = positions[0, 0]  # lockstep decode: one position
             idx = (pos % T).reshape(1).long()
-            new_cache["k"] = cache["k"].index_copy(1, idx, kq)
-            new_cache["v"] = cache["v"].index_copy(1, idx, vq)
+            new_cache["k"] = _write_slot(cache["k"], idx, kq)
+            new_cache["v"] = _write_slot(cache["v"], idx, vq)
             if quant:
-                new_cache["ks"] = cache["ks"].index_copy(1, idx, ks_new)
-                new_cache["vs"] = cache["vs"].index_copy(1, idx, vs_new)
+                new_cache["ks"] = _write_slot(cache["ks"], idx, ks_new)
+                new_cache["vs"] = _write_slot(cache["vs"], idx, vs_new)
             k_pos = _ring_positions(pos, T)[None, :].expand(B, T)
         for name in ("k", "v"):
             new_cache[name] = shard(new_cache[name], "batch", "act_kvseq",
@@ -291,13 +339,11 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
             if cfg.kv_cache_dtype == "int8":
                 kq, ks_new = _quant_kv(k)
                 vq, vs_new = _quant_kv(v)
-                new_cache = {"k": _store_prefill(T, kq),
-                             "v": _store_prefill(T, vq),
-                             "ks": _store_prefill(T, ks_new),
-                             "vs": _store_prefill(T, vs_new)}
+                new_cache = {"k": _stored(T, kq), "v": _stored(T, vq),
+                             "ks": _stored(T, ks_new),
+                             "vs": _stored(T, vs_new)}
             else:
-                new_cache = {"k": _store_prefill(T, k),
-                             "v": _store_prefill(T, v)}
+                new_cache = {"k": _stored(T, k), "v": _stored(T, v)}
 
     out = out.reshape(B, S, H, dh)
     if project is None:

@@ -25,7 +25,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.sharding import shard
+from repro_torch.sharding import blockwise, gather_seq, shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -138,7 +138,7 @@ def mlp_specs() -> dict:
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str,
               compute_dtype: torch.dtype) -> torch.Tensor:
-    x = x.to(compute_dtype)
+    x = gather_seq(x.to(compute_dtype))
     # FSDP's gather: each weight whole but for its TP dim
     h = torch.matmul(x, shard(p["w1"].to(compute_dtype), None, "ff"))
     g = torch.matmul(x, shard(p["w3"].to(compute_dtype), None, "ff"))
@@ -153,8 +153,13 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str,
 # --------------------------------------------------------------------- #
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    table = shard(table, "vocab", None)         # FSDP's gather
-    return shard(table[tokens].to(compute_dtype), "batch", "seq", None)
+    """Under a mesh each rank looks its own rows' tokens up in the whole
+    table (a lookup into a vocab-split table is not laid out by every
+    DTensor version)."""
+    h = blockwise(lambda t, w: w[t].to(compute_dtype),
+                  [(tokens, ("batch", None))], [table],
+                  out=("batch", None, None))
+    return shard(h, "batch", "seq", None)
 
 
 def lm_logits(h: torch.Tensor, head_w: torch.Tensor,
@@ -164,6 +169,7 @@ def lm_logits(h: torch.Tensor, head_w: torch.Tensor,
     reference's ``preferred_element_type=f32`` (products of bf16 values
     are exact in f32)."""
     f32 = torch.float32
+    h = gather_seq(h)
     head_w = shard(head_w.to(h.dtype), None, "vocab")   # FSDP's gather
     logits = torch.matmul(h.to(f32), head_w.to(f32))
     logits = softcap(logits, final_cap)
@@ -178,10 +184,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     The label's logit is gathered; the reference sums a one-hot
     selection instead (which keeps a TP-sharded vocab dim sharded) —
-    the same value, since every other term it adds is zero."""
+    the same value, since every other term it adds is zero. Under a
+    mesh the labels are cut to the logits' batch rows, and each rank
+    gathers (and takes the argmax of) its own rows' logits whole over
+    the vocab (``blockwise``): a gather against labels that every rank
+    holds whole would gather the whole batch's logits on every rank."""
     logits = logits.to(torch.float32)
     pv = logits.shape[-1]
-    labels = labels.to(device=logits.device, dtype=torch.int64)
+    labels = shard(labels.to(device=logits.device, dtype=torch.int64),
+                   "batch", None)
     if pv > vocab_size:
         vocab_ids = torch.arange(pv, device=logits.device)
         logits = torch.where(vocab_ids < vocab_size, logits,
@@ -189,11 +200,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     valid = labels >= 0
     safe_labels = torch.where(valid, labels, 0)
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(shard(logits, "batch", None, None), -1,
-                      safe_labels[..., None])[..., 0]
+    ll, pred = blockwise(
+        lambda lg, lb: (torch.gather(lg, -1, lb[..., None])[..., 0],
+                        torch.argmax(lg, -1)),
+        [(logits, ("batch", None, None)), (safe_labels, ("batch", None))],
+        out=(("batch", None), ("batch", None)))
     nll = (logz - ll) * valid
     denom = torch.clamp(valid.sum(), min=1)
-    acc = ((torch.argmax(logits, -1) == safe_labels) * valid).sum() / denom
+    acc = ((pred == safe_labels) * valid).sum() / denom
     return nll.sum() / denom, acc
 
 
@@ -204,7 +218,17 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor]) -> torch.Tensor:
     """x: (B, L, C); w: (W, C) depthwise; left-padded causal. W shifted
     products added in the reference's order (W is 4: no conv primitive
-    needed)."""
+    needed). Under a mesh each rank convolves its own rows, every
+    channel (``blockwise``)."""
+    if b is None:
+        return blockwise(lambda x, w: _causal_conv1d(x, w, None),
+                         [(x, ("batch", None, None))], [w],
+                         out=("batch", None, None))
+    return blockwise(_causal_conv1d, [(x, ("batch", None, None))], [w, b],
+                     out=("batch", None, None))
+
+
+def _causal_conv1d(x, w, b):
     W, L = w.shape[0], x.shape[1]
     xp = torch.nn.functional.pad(x, [0, 0, W - 1, 0])
     out = torch.zeros_like(x)

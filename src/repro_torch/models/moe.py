@@ -30,8 +30,22 @@ keeps the lower expert index first, as ``jax.lax.top_k`` does
 
 The reference's ``shard(...)`` constraints stand at its places
 (``repro_torch.sharding``: nothing without a mesh) and ``moe_specs``
-gives the parameters' logical axes; a sharded MoE train step is not
-checked yet (ROADMAP Queue 1).
+gives the parameters' logical axes. Under a mesh the experts' blocks
+are DTensors, ``exp`` on ``model`` (expert parallelism), but DTensor
+has no sharding rule for the sort dispatch (``searchsorted``, the
+index gathers, ``index_add``), so that part runs on plain tensors:
+
+  * the token path routes all T tokens on every rank (its capacity and
+    its drops are global): the tokens are gathered whole
+    (``sharding.unshard``), routed and dispatched alike on every rank,
+    the (E, C, d) block is split to ``("exp", "cap", None)`` for the
+    experts, and gathered whole again for the combine;
+  * the grouped path routes each rank's own groups, which follow
+    ``batch`` (``sharding.local_part``): nothing crosses ranks but the
+    experts' blocks and the aux scalars' means.
+
+The aux scalars come back as DTensors under a mesh, so that their
+gradient reaches the router through the DTensor graph.
 """
 from __future__ import annotations
 
@@ -40,7 +54,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.models.layers import act_fn, dense_init
-from repro_torch.sharding import shard
+from repro_torch.sharding import (current_mesh, from_local_part, gather_seq,
+                                  local_part, reshape, shard, unshard)
 
 # the generator order of ``moe_init``'s leaves
 MOE_LEAVES = ("router", "w1", "w3", "w2", "shared_w1", "shared_w3",
@@ -152,22 +167,26 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
     With ``cfg.moe_groups = G > 1`` (and B·S divisible by G) the
     tokens are split into G local-dispatch groups: routing, capacity
     and combine stay inside a group."""
+    x = gather_seq(x)  # the sequence whole inside the block (SP)
     dt = x.dtype
     B, S, d = x.shape
     G = max(cfg.moe_groups, 1)
     T = B * S
     if G > 1 and T % G == 0:
-        y, aux = _moe_grouped(p, cfg, x.reshape(G, T // G, d))
+        y, aux = _moe_grouped(p, cfg, reshape(x, G, T // G, d))
     else:
-        y, aux = _moe_tokens(p, cfg, x.reshape(T, d))
-    y = shard(y.reshape(B, S, d), "batch", "seq", None)
+        y, aux = _moe_tokens(p, cfg, reshape(x, T, d))
+    y = shard(reshape(y, B, S, d), "batch", "seq", None)
 
     if cfg.num_shared_experts:
         sh = p["shared"]
         hs = act_fn(cfg.act)(torch.matmul(x, sh["w1"].to(dt)))
         hs = hs * torch.matmul(x, sh["w3"].to(dt))
         hs = shard(hs, "batch", None, "ff")
-        y = y + torch.matmul(hs, sh["w2"].to(dt))
+        # onto the sequence shards before the sum, as ``y``: the
+        # gradient then comes back whole into the product
+        y = y + shard(torch.matmul(hs, sh["w2"].to(dt)), "batch", "seq",
+                      None)
     return y, aux
 
 
@@ -178,8 +197,11 @@ def _moe_tokens(p: Dict, cfg, xt: torch.Tensor
     T, d = xt.shape
     E, K = cfg.num_experts, cfg.top_k
     C = capacity(T, cfg)
+    # under a mesh: every rank routes every token (a no-op without one)
+    xt = unshard(xt)
+    router = unshard(p["router"])
 
-    probs, gate_vals, expert_ids = route(p, cfg, xt)
+    probs, gate_vals, expert_ids = route({"router": router}, cfg, xt)
     # load-balance aux (Switch): E * mean(frac_tokens_e * mean_prob_e)
     me = probs.mean(dim=0)
     ce = torch.nn.functional.one_hot(expert_ids[:, 0], E).to(
@@ -194,8 +216,9 @@ def _moe_tokens(p: Dict, cfg, xt: torch.Tensor
 
     x_e = xt[token_ids.reshape(-1)].reshape(E, C, d)
     names = ("exp", "cap", None)
-    y_e = _experts(p, cfg, x_e, names) * gates_ec[..., None].to(dt)
-    y_e = shard(y_e, *names)
+    y_e = _experts(p, cfg, x_e, names) * shard(gates_ec[..., None].to(dt),
+                                                *names)
+    y_e = unshard(shard(y_e, *names))
 
     # combine: invalid slots land in row T, which is dropped
     seg = torch.where(valid, token_ids, T).reshape(-1)
@@ -204,7 +227,8 @@ def _moe_tokens(p: Dict, cfg, xt: torch.Tensor
     y = y[:T].to(dt)
 
     dropped = 1.0 - valid.sum() / max(T * K, 1)
-    return y, {"aux_loss": aux_loss, "drop_frac": dropped.to(torch.float32)}
+    return y, {"aux_loss": shard(aux_loss),
+               "drop_frac": shard(dropped.to(torch.float32))}
 
 
 def _moe_grouped(p: Dict, cfg, xg: torch.Tensor
@@ -213,16 +237,21 @@ def _moe_grouped(p: Dict, cfg, xg: torch.Tensor
     Routing, capacity gather and combine are per group; the combine
     sums in the compute dtype, as the reference's does."""
     dt = xg.dtype
-    G, Tg, d = xg.shape
+    Tg, d = xg.shape[1:]
     E, K = cfg.num_experts, cfg.top_k
     C = capacity(Tg, cfg)
-    xg = shard(xg, "batch", None, None)
+    # this rank's groups, as plain tensors (all of them without a mesh)
+    xg = local_part(xg, "batch", None, None)
+    G = xg.shape[0]
 
-    probs, gate_vals, expert_ids = route(p, cfg, xg)          # (G, Tg, ·)
+    router = unshard(p["router"], rows=("batch",))
+    probs, gate_vals, expert_ids = route({"router": router}, cfg,
+                                         xg)                  # (G, Tg, ·)
     me = probs.mean(dim=1)                                    # (G, E)
     ce = torch.nn.functional.one_hot(expert_ids[:, :, 0], E).to(
         torch.float32).mean(dim=1)
-    aux_loss = E * torch.sum(me * ce, dim=-1).mean()
+    aux_loss = E * from_local_part(torch.sum(me * ce, dim=-1),
+                                   "batch").mean()
 
     flat_slot, valid = dispatch(expert_ids, E, C)             # (G, E, C)
     token_ids = flat_slot // K
@@ -232,15 +261,19 @@ def _moe_grouped(p: Dict, cfg, xg: torch.Tensor
                          choice.reshape(G, -1)].reshape(G, E, C) * valid
 
     x_e = xg[g_idx, token_ids.reshape(G, -1)].reshape(G, E, C, d)
+    blocks = ("batch", None, None, None)
     names = ("batch", "exp", None, None)
-    y_e = _experts(p, cfg, x_e, names) * gates_ec[..., None].to(dt)
-    y_e = shard(y_e, *names)
+    y_e = _experts(p, cfg, from_local_part(x_e, *blocks), names) * \
+        shard(from_local_part(gates_ec[..., None].to(dt), *blocks), *names)
+    y_e = local_part(shard(y_e, *names), *blocks)
 
     seg = torch.where(valid, token_ids, Tg) + \
         (Tg + 1) * torch.arange(G, device=xg.device)[:, None, None]
     y = torch.zeros((G * (Tg + 1), d), dtype=dt, device=xg.device)
     y = y.index_add(0, seg.reshape(-1), y_e.reshape(G * E * C, d))
-    y = shard(y.reshape(G, Tg + 1, d)[:, :Tg], "batch", None, None)
+    y = from_local_part(y.reshape(G, Tg + 1, d)[:, :Tg], "batch", None, None)
 
-    dropped = 1.0 - valid.sum() / max(G * Tg * K, 1)
+    n_valid = from_local_part(valid.reshape(G, -1).sum(-1), "batch").sum()
+    G_all = G if current_mesh() is None else y.shape[0]
+    dropped = 1.0 - n_valid / max(G_all * Tg * K, 1)
     return y, {"aux_loss": aux_loss, "drop_frac": dropped.to(torch.float32)}

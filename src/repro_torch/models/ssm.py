@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (causal_conv1d, conv_update,
                                        dense_init, pdtype, rms_norm)
-from repro_torch.sharding import shard
+from repro_torch.sharding import blockwise, gather_seq, reshape, shard
 
 # one generator per drawn leaf of a Mamba2 block, keyed by its index here
 MAMBA_LEAVES = ("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj",
@@ -129,10 +129,10 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
 
     la = -A.to(f32) * dt.to(f32)                     # (B, L, H) log decay
     xdt = xh.to(f32) * dt.to(f32)[..., None]         # (B, L, H, P)
-    cum = torch.cumsum(la.reshape(Bsz, nc, Q, H), dim=2)
-    x_c = xdt.reshape(Bsz, nc, Q, H, P)
-    B_c = Bm.to(f32).reshape(Bsz, nc, Q, G, N)
-    C_c = Cm.to(f32).reshape(Bsz, nc, Q, G, N)
+    cum = torch.cumsum(reshape(la, Bsz, nc, Q, H), dim=2)
+    x_c = reshape(xdt, Bsz, nc, Q, H, P)
+    B_c = reshape(Bm.to(f32), Bsz, nc, Q, G, N)
+    C_c = reshape(Cm.to(f32), Bsz, nc, Q, G, N)
     hpg = H // G
 
     # intra-chunk: Y[i] = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xdt_j
@@ -164,7 +164,7 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     Ch = torch.repeat_interleave(C_c, hpg, dim=3)    # (B, nc, Q, H, N)
     y_inter = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch, s_prev,
                            torch.exp(cum))
-    return (y_intra + y_inter).reshape(Bsz, L, H, P), s
+    return reshape(y_intra + y_inter, Bsz, L, H, P), s
 
 
 def ssd_step(h, xs, dts, A, Bm, Cm):
@@ -215,14 +215,21 @@ def ssd_inputs(p: Dict, cfg, x: torch.Tensor):
                               p["conv_c_b"].to(dt_)))
     dts = F.softplus(dtr.to(torch.float32) + p["dt_bias"].to(torch.float32))
     A = torch.exp(p["A_log"].to(torch.float32))
-    xs = shard(xc.reshape(Bsz, L, H, P), "batch", None, "ff", None)
+    xs = shard(reshape(xc, Bsz, L, H, P), "batch", None, "ff", None)
     return (z, xr, br, cr, xs, dts, A,
-            bc.reshape(Bsz, L, G, N), cc.reshape(Bsz, L, G, N))
+            reshape(bc, Bsz, L, G, N), reshape(cc, Bsz, L, G, N))
 
 
 def _last_inputs(pre: torch.Tensor, W: int) -> torch.Tensor:
     """The conv state after a prefill: its last W-1 inputs, zero-padded
-    on the left where the sequence is shorter."""
+    on the left where the sequence is shorter (each rank its own rows
+    under a mesh)."""
+    rows = ("batch", None, None)
+    return blockwise(lambda t: _last_inputs_of(t, W), [(pre, rows)],
+                     out=rows)
+
+
+def _last_inputs_of(pre: torch.Tensor, W: int) -> torch.Tensor:
     L = pre.shape[1]
     return F.pad(pre, [0, 0, W - 1, 0])[:, L:L + W - 1, :]
 
@@ -232,6 +239,7 @@ def mamba_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, L, d) for train/prefill, (B, 1, d) for decode. Returns
     (out (B, L, d), the new cache: None in train mode)."""
+    x = gather_seq(x)  # the sequence whole inside the block (SP)
     dt_ = x.dtype
     f32 = torch.float32
     d_in, H, P, N, G = _dims(cfg)
@@ -250,22 +258,32 @@ def mamba_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
                              p["conv_b_w"].to(dt_), p["conv_b_b"].to(dt_))
         cc, ct = conv_update(cache["conv_c"], cr[:, 0],
                              p["conv_c_w"].to(dt_), p["conv_c_b"].to(dt_))
-        xs = F.silu(xt).reshape(Bsz, H, P).to(f32)
-        Bm = F.silu(bt).reshape(Bsz, G, N).to(f32)
-        Cm = F.silu(ct).reshape(Bsz, G, N).to(f32)
+        xs = reshape(F.silu(xt), Bsz, H, P).to(f32)
+        Bm = reshape(F.silu(bt), Bsz, G, N).to(f32)
+        Cm = reshape(F.silu(ct), Bsz, G, N).to(f32)
         dts = F.softplus(dtr[:, 0].to(f32) + p["dt_bias"].to(f32))
         A = torch.exp(p["A_log"].to(f32))
-        y, h = ssd_step(cache["ssm"], xs, dts, A, Bm, Cm)
+        # each rank its own lanes, every head (``blockwise``)
+        r4, r3, r2 = ("batch", None, None, None), ("batch", None, None), \
+            ("batch", None)
+        y, h = blockwise(ssd_step, [(cache["ssm"], r4), (xs, r3),
+                                    (dts, r2), (A, (None,)), (Bm, r3),
+                                    (Cm, r3)], out=(r3, r4))
         y = y + xs * p["D"].to(f32)[None, :, None]
-        y = y.reshape(Bsz, 1, d_in).to(dt_)
+        y = reshape(y, Bsz, 1, d_in).to(dt_)
         new_cache = {"conv_x": cx.to(cache["conv_x"].dtype),
                      "conv_b": cb.to(cache["conv_b"].dtype),
                      "conv_c": cc.to(cache["conv_c"].dtype), "ssm": h}
     else:
         z, xr, br, cr, xs, dts, A, Bm, Cm = ssd_inputs(p, cfg, x)
-        y, s_final = ssd_chunked(xs, dts, A, Bm, Cm, chunk)
+        # each rank scans its own rows, every head (``blockwise``)
+        rows4, rows3 = ("batch", None, None, None), ("batch", None, None)
+        y, s_final = blockwise(
+            lambda *a: ssd_chunked(*a[:2], a[4], *a[2:4], chunk),
+            [(xs, rows4), (dts, rows3), (Bm, rows4), (Cm, rows4)], [A],
+            out=(rows4, rows4))
         y = y + xs.to(f32) * p["D"].to(f32)[None, None, :, None]
-        y = y.reshape(Bsz, L, d_in).to(dt_)
+        y = reshape(y, Bsz, L, d_in).to(dt_)
         new_cache = None
         if mode == "prefill":
             new_cache = {"conv_x": _last_inputs(xr, W),

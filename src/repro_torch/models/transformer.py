@@ -139,7 +139,7 @@ def _block_apply(p, cfg, h, *, positions, mode, cache, window,
                                        project=project)
     if cfg.post_block_norm:
         a_out = rms_norm(a_out, p["attn_post"], cfg.norm_eps)
-    h = shard(h + a_out, "batch", "seq", None)
+    h = shard(h + _seq_sharded(a_out), "batch", "seq", None)
 
     m_in = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
     aux = {}
@@ -151,7 +151,19 @@ def _block_apply(p, cfg, h, *, positions, mode, cache, window,
         m_out = mlp_apply(p["mlp"], m_in, cfg.act, m_in.dtype)
     if cfg.post_block_norm:
         m_out = rms_norm(m_out, p["mlp_post"], cfg.norm_eps)
-    return shard(h + m_out, "batch", "seq", None), new_cache, aux
+    return (shard(h + _seq_sharded(m_out), "batch", "seq", None),
+            new_cache, aux)
+
+
+def _seq_sharded(out):
+    """A sublayer's output on the residual stream's layout, before the
+    residual sum: under sequence parallelism its partial sums are
+    reduce-scattered onto the sequence shards here, as an explicit
+    constraint, so that its gradient comes back gathered whole into
+    the sublayer's products (a sum's implicit redistribution would hand
+    them a sequence-split gradient, which DTensor lays out only as a
+    strided shard). No-op without a mesh."""
+    return shard(out, "batch", "seq", None)
 
 
 def _save_plain_matmuls(ctx, op, *args, **kwargs):
@@ -312,7 +324,7 @@ class HybridStack:
                     layer_slice(p_g["mamba"], i), cfg, m_in, mode=mode,
                     cache=None if c_g is None else
                     layer_slice(c_g["mamba"], i))
-                h = h + out
+                h = h + _seq_sharded(out)
                 mamba.append(c_m)
             h = shard(h, "batch", "seq", None)
             h, c_a, _ = _block_apply(
@@ -390,7 +402,7 @@ class XLSTMStack:
                     layer_slice(p_g["mlstm"], i), cfg, h, mode=mode,
                     cache=None if c_g is None else
                     layer_slice(c_g["mlstm"], i))
-                h = h + out
+                h = h + _seq_sharded(out)
                 mlstm.append(c_m)
             h, c_s = xlstm_mod.slstm_apply(
                 p_g["slstm"], cfg, h, mode=mode,

@@ -30,7 +30,9 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (act_fn, causal_conv1d, conv_update,
                                        dense_init, pdtype, rms_norm)
 from repro_torch.models.ssm import _last_inputs, chunk_geometry
-from repro_torch.sharding import shard
+from repro_torch.sharding import (blockwise, elementwise, from_local_part,
+                                  gather_seq, local_part, reshape, shard,
+                                  unshard)
 
 NEG = -1e30
 
@@ -89,8 +91,8 @@ def _headnorm(h: torch.Tensor, scale: torch.Tensor, eps: float
     hf = h.to(torch.float32)
     var = torch.mean(torch.square(hf), dim=-1, keepdim=True)
     hf = hf * torch.rsqrt(var + eps)
-    hf = hf.reshape(*shp[:-2], shp[-2] * shp[-1]) * scale.to(torch.float32)
-    return hf.reshape(shp).to(dt)
+    hf = reshape(hf, *shp[:-2], shp[-2] * shp[-1]) * scale.to(torch.float32)
+    return reshape(hf, *shp).to(dt)
 
 
 def mlstm_cell_chunked(q, k, v, log_i, log_f, state, chunk: int):
@@ -102,7 +104,7 @@ def mlstm_cell_chunked(q, k, v, log_i, log_f, state, chunk: int):
     nc, Q = chunk_geometry(L, chunk)
 
     def rs(t, *tail):
-        return t.reshape(Bsz, nc, Q, *tail)
+        return reshape(t, Bsz, nc, Q, *tail)
 
     qc, kc, vc = (rs(t.to(f32), H, dh) for t in (q, k, v))
     li = rs(log_i.to(f32), H)
@@ -160,7 +162,7 @@ def mlstm_cell_chunked(q, k, v, log_i, log_f, state, chunk: int):
     den = den + torch.einsum("bcqhd,bchd->bcqh", qc, np_) * w_inter
     den = torch.maximum(torch.abs(den), torch.exp(-m_i))  # (B, nc, Q, H)
     h = num / den[..., None]
-    return h.reshape(Bsz, L, H, dh), (C, n, m)
+    return reshape(h, Bsz, L, H, dh), (C, n, m)
 
 
 def mlstm_cell_step(q, k, v, log_i, log_f, state):
@@ -227,12 +229,13 @@ def mlstm_inputs(p: Dict, cfg, x: torch.Tensor, conv_state=None):
     else:
         xc = F.silu(causal_conv1d(xm, p["conv_w"].to(dt),
                                   p["conv_b"].to(dt)))
-    q = torch.matmul(xc, p["wq"].to(dt)).reshape(Bsz, L, Hl, dh)
-    k = torch.matmul(xc, p["wk"].to(dt)).reshape(Bsz, L, Hl, dh) \
+    q = reshape(torch.matmul(xc, p["wq"].to(dt)), Bsz, L, Hl, dh)
+    k = reshape(torch.matmul(xc, p["wk"].to(dt)), Bsz, L, Hl, dh) \
         / math.sqrt(dh)
-    v = torch.matmul(xm, p["wv"].to(dt)).reshape(Bsz, L, Hl, dh)
+    v = reshape(torch.matmul(xm, p["wv"].to(dt)), Bsz, L, Hl, dh)
     log_i = torch.matmul(xc, p["wi"].to(dt)) + p["bi"].to(dt)
-    log_f = F.logsigmoid(torch.matmul(xc, p["wf"].to(dt)) + p["bf"].to(dt))
+    log_f = elementwise(F.logsigmoid,
+                        torch.matmul(xc, p["wf"].to(dt)) + p["bf"].to(dt))
     return z, xm, xc, q, k, v, log_i, log_f, new_conv
 
 
@@ -241,6 +244,7 @@ def mlstm_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, L, d). Returns (the block's output, to be added to x; the
     new cache: None in train mode)."""
+    x = gather_seq(x)  # the sequence whole inside the block (SP)
     dt = x.dtype
     dm, Hl, dh = _mdims(cfg)
     Bsz, L, _ = x.shape
@@ -258,16 +262,27 @@ def mlstm_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
                      "C": C.to(cache["C"].dtype), "n": n, "m": m}
     else:
         z, xm, xc, q, k, v, log_i, log_f, _ = mlstm_inputs(p, cfg, x)
-        h, (C, n, m) = mlstm_cell_chunked(q, k, v, log_i, log_f, None,
-                                          chunk)
+        # each rank its own rows, every head (``blockwise``)
+        r4, r3, r2 = ("batch", None, None, None), ("batch", None, None), \
+            ("batch", None)
+        h, C, n, m = blockwise(
+            lambda *a: _flat(mlstm_cell_chunked(*a, None, chunk)),
+            [(q, r4), (k, r4), (v, r4), (log_i, r3), (log_f, r3)],
+            out=(r4, r4, r3, r2))
         new_cache = None
         if mode == "prefill":
             new_cache = {"conv": _last_inputs(xm, cfg.conv_width),
                          "C": C.to(torch.bfloat16), "n": n, "m": m}
 
-    h = _headnorm(h.to(dt), p["hnorm"], cfg.norm_eps).reshape(Bsz, L, dm)
+    h = reshape(_headnorm(h.to(dt), p["hnorm"], cfg.norm_eps), Bsz, L, dm)
     h = h + p["skip"].to(dt) * xc
     return torch.matmul(h * F.silu(z), p["w_down"].to(dt)), new_cache
+
+
+def _flat(out):
+    """(h, (C, n, m)) → (h, C, n, m)."""
+    h, (C, n, m) = out
+    return h, C, n, m
 
 
 def mlstm_specs(cfg) -> Dict:
@@ -352,13 +367,13 @@ def _slstm_step(p, cfg, carry, gx_t):
     h, c, n, m = carry
     d = h.shape[-1]
     Hl = cfg.num_lstm_heads
-    hh = h.reshape(-1, Hl, d // Hl)
+    hh = reshape(h, -1, Hl, d // Hl)
     rec = torch.einsum("bhd,ghde->gbhe", hh, p["R"].to(torch.float32))
-    rec = rec.reshape(4, -1, d)
+    rec = reshape(rec, 4, -1, d)
     gi, gf, gz, go = (gx_t[..., i * d:(i + 1) * d] + rec[i]
                       for i in range(4))
     log_i = gi
-    log_f = F.logsigmoid(gf)
+    log_f = elementwise(F.logsigmoid, gf)
     m_new = torch.maximum(log_f + m, log_i)
     i_s = torch.exp(log_i - m_new)
     f_s = torch.exp(log_f + m - m_new)
@@ -370,12 +385,36 @@ def _slstm_step(p, cfg, carry, gx_t):
 
 def slstm_scan(p, cfg, gx, carry):
     """:func:`_slstm_step` over the sequence. gx: (B, L, 4d) f32.
-    Returns (hs (B, L, d), the last carry)."""
-    hs = []
-    for t in range(gx.shape[1]):
-        carry = _slstm_step(p, cfg, carry, gx[:, t])
-        hs.append(carry[0])
-    return torch.stack(hs, dim=1), carry
+    Returns (hs (B, L, d), the last carry).
+
+    Under a mesh the recurrence runs on each rank's own batch rows as
+    plain tensors, with ``R`` whole (its spec replicates it): every
+    step is a dozen small ops, which DTensor would dispatch one by one
+    with their layouts, L times a block.
+
+    On the ``meta`` device (a dry run: shapes without values) the L
+    steps are taken as one step over B·L rows: the same products and
+    elementwise ops at L times the rows, so the same FLOPs and saved
+    activations, without L passes of the host's dispatch. The chain
+    through time is in the values alone, and there are none."""
+    gx = local_part(gx, "batch", None, None)
+    carry = tuple(local_part(c, "batch", None) for c in carry)
+    R = {"R": unshard(p["R"], rows=("batch",))}
+    Bsz, L = gx.shape[:2]
+    if gx.device.type == "meta":
+        rows = tuple(c[:, None].expand(Bsz, L, c.shape[-1]).reshape(
+            Bsz * L, -1) for c in carry)
+        out = _slstm_step(R, cfg, rows, gx.reshape(Bsz * L, -1))
+        out = tuple(c.reshape(Bsz, L, -1) for c in out)
+        hs, carry = out[0], tuple(c[:, -1] for c in out)
+    else:
+        hs = []
+        for t in range(L):
+            carry = _slstm_step(R, cfg, carry, gx[:, t])
+            hs.append(carry[0])
+        hs = torch.stack(hs, dim=1)
+    return (from_local_part(hs, "batch", None, None),
+            tuple(from_local_part(c, "batch", None) for c in carry))
 
 
 def slstm_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
@@ -383,6 +422,7 @@ def slstm_apply(p: Dict, cfg, x: torch.Tensor, *, mode: str,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, L, d). Returns (x plus the block's output, the new cache:
     None in train mode)."""
+    x = gather_seq(x)  # the sequence whole inside the block (SP)
     dt = x.dtype
     Bsz, L, d = x.shape
     h_in = rms_norm(x, p["norm"], cfg.norm_eps)

@@ -3,4 +3,4 @@ eval, prefill and decode steps; sharded under a mesh), ``checkpoint``
 (the reference's atomic on-disk layout, reshard-on-load),
 ``train_loop`` (auto-resume, watchdog, metrics) and ``elastic``
 (resume on another mesh). The launchers' pipeline, dry run and
-roofline are ROADMAP Queue 1 item 9g."""
+roofline are in ``repro_torch.launch``."""

@@ -124,16 +124,23 @@ def make_train_step(cfg, optimizer, *, global_batch: int, dp: int = 1
         return new_params, new_opt, {**metrics, **om}
 
     def train_step(params, opt_state, batch):
-        if current_mesh() is None:
-            return step(params, opt_state, batch)
-        from torch.distributed.tensor.experimental import \
-            implicit_replication
-
-        with implicit_replication():
+        with _mesh_context():
             new_params, new_opt, metrics = step(params, opt_state, batch)
             return new_params, new_opt, _replicated(metrics)
 
     return train_step, accum
+
+
+def _mesh_context():
+    """Under a mesh, DTensor's ``implicit_replication`` (a plain tensor
+    made inside the model counts as replicated); else nothing."""
+    import contextlib
+
+    if current_mesh() is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def make_dp_train_step(cfg, optimizer, *, global_batch: int,
@@ -184,12 +191,14 @@ def make_eval_step(cfg) -> Callable:
 def make_prefill_step(cfg) -> Callable:
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model_lib.prefill(cfg, params, batch)
+        with _mesh_context():
+            return model_lib.prefill(cfg, params, batch)
     return prefill_step
 
 
 def make_decode_step(cfg) -> Callable:
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
-        return model_lib.decode_step(cfg, params, cache, tokens, pos)
+        with _mesh_context():
+            return model_lib.decode_step(cfg, params, cache, tokens, pos)
     return decode_step

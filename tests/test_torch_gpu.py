@@ -1042,3 +1042,114 @@ def test_gpu_dtensor_over_gloo_dies_on_cuda_tensors(cuda):
     res = _gloo_ranks("dtensor")
     assert all(r.returncode != 0 for r in res), [r.stdout for r in res]
     assert all('"full"' not in r.stdout for r in res)
+
+
+PIPE_WORKER = """
+import json
+import numpy as np
+import torch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.pipeline import pipeline_apply, stage_index
+
+rank = mesh_lib.init_fleet_group(60)
+dev = mesh_lib.rank_device()
+torch.cuda.set_device(dev)
+rng = np.random.default_rng(7)
+w = torch.from_numpy((rng.standard_normal((2, 16, 16)) / 4.0)
+                     .astype(np.float32)).to(dev)
+x = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32)).to(dev)
+mesh = mesh_lib.make_mesh((2,), ("pod",), "cpu")
+s = stage_index("pod", mesh=mesh)
+stats = {}
+out = pipeline_apply(lambda p, h: torch.tanh(h @ p), w[s], x, mesh=mesh,
+                     microbatches=4, stats=stats)
+want = torch.tanh(torch.tanh(x @ w[0]) @ w[1])
+print(json.dumps({"rank": rank, "device": str(out.device),
+                  "err": float((out - want).abs().max()),
+                  "staged_bytes": stats["staged_bytes"]}), flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_pipeline_on_two_ranks_sharing_the_card(cuda):
+    """``pipeline_apply`` with two stages on two ranks sharing the card
+    (one gloo group): the activations are the card's tensors, staged
+    through pinned host buffers (gloo's point-to-point takes CPU
+    tensors), and every rank returns the sequential result."""
+    import json
+    import sys
+
+    from repro_torch.launch import simdev
+    res = simdev.launch_local_fleet([sys.executable, "-c", PIPE_WORKER], 2,
+                                    timeout=120.0)
+    outs = []
+    for r in res:
+        assert r.returncode == 0, r.stderr_tail
+        outs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    for o in outs:
+        assert o["device"] == "cuda:0" and o["err"] < 1e-6, o
+    # stage 0: 4 microbatches of 2 × 16 f32 to the host, the broadcast
+    # (4, 2, 16) outputs back; stage 1: 4 microbatches in, the outputs
+    # to the host for the broadcast
+    mb = 2 * 16 * 4
+    assert [o["staged_bytes"] for o in outs] == [8 * mb, 8 * mb]
+
+
+DRYRUN_WORKER = """
+import json
+import torch
+from repro_torch.configs import ShapeConfig, get_reduced
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch import dryrun
+from repro_torch.models import model as model_lib
+from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.train import steps as steps_lib
+
+cfg = get_reduced("qwen1.5-0.5b").replace(d_model=512, d_ff=1024,
+                                          num_heads=8, num_kv_heads=8,
+                                          head_dim=64)
+B, S = 8, 512
+pred = dryrun.lower_cell(cfg, ShapeConfig("t", S, B, "train"), None,
+                         verbose=False)["memory"]["peak_bytes_per_device"]
+dev = torch.device("cuda", 0)
+opt = AdamW(lr=cosine_schedule(3e-4, 100, 10_000))
+step, _ = steps_lib.make_train_step(cfg, opt, global_batch=B)
+batch = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                      seed=0).batch(0)
+
+def args():
+    p = model_lib.init_params(cfg, 0, device=dev)
+    return p, opt.init(p), batch
+
+step(*args())
+torch.cuda.synchronize()
+torch.cuda.empty_cache()
+before = torch.cuda.memory_allocated(dev)
+a = args()
+torch.cuda.reset_peak_memory_stats(dev)
+out = step(*a)
+torch.cuda.synchronize()
+print(json.dumps({"predicted": pred,
+                  "measured": torch.cuda.max_memory_allocated(dev) - before}))
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_dryrun_peak_of_a_reduced_step_matches_the_card(cuda):
+    """The dry run's peak of a qwen train step at reduced depth (3
+    layers, d 512, 8 × 512 tokens) on one position (no mesh) against
+    ``max_memory_allocated`` of the same step on the card, after a
+    warm-up step: within 10 % (phase 16(a)'s bound)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", DRYRUN_WORKER], cwd=root,
+                         env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(root, "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert abs(out["predicted"] - out["measured"]) <= 0.10 * out["measured"], \
+        out

@@ -17,9 +17,10 @@
     those of the rule table.
   * Without a mesh every helper of ``sharding.py`` returns its input
     object unchanged.
-  * A sharded train step of the reduced qwen1.5-0.5B (f32 compute,
-    AdamW eps 1e-4) on 2 gloo ranks (data=2) and on 4 (2 × 2, with TP)
-    against one process's 2 steps: the losses within rel 1e-5, and the
+  * A sharded train step of the reduced qwen1.5-0.5B, moonshot (MoE),
+    zamba2 (hybrid) and xlstm (ssm) (f32 compute, AdamW eps 1e-4) on 2
+    gloo ranks (data=2) and on 4 (2 × 2, with TP) against one process's
+    2 steps: the losses within rel 1e-5, and the
     parameters within rel 1e-5 of the tree's largest entry. Per leaf,
     the zero-initialised QKV biases (2·lr = 2e-3 at most after two
     steps) differ by up to 6.1e-8 on 4 ranks (3.1e-5 of their own
@@ -27,9 +28,9 @@
     order noise by ~eps (ROADMAP "Parity traps").
   * The launcher with ``--model-parallel 2`` under 4 ranks prints its
     mesh, trains, and writes checkpoints that restore (in one process
-    it refuses: ``test_torch_train.py``). As a rank it refuses, before
-    it joins a group, the families whose sharded step ROADMAP item 9h
-    has not checked (MoE, hybrid, ssm) and ranks on the card.
+    it refuses: ``test_torch_train.py``). As a rank it takes the MoE,
+    hybrid and ssm families on the CPU (their gates above hold: it gets
+    as far as joining the group) and refuses ranks on the card.
 
 The spawned ranks (a supervisor timeout of 240 s each) pay most of
 their time in their first sharded step on torch 2.13, where DTensor
@@ -252,9 +253,10 @@ STEP_WORKER = textwrap.dedent("""
 
     torch.set_num_threads(1)
     rank = mesh_lib.init_fleet_group(120)
-    model_parallel, accum = int(sys.argv[1]), int(sys.argv[2])
-    cfg = get_reduced("qwen1.5-0.5b").replace(compute_dtype="float32",
-                                              grad_accum=accum)
+    model_parallel, accum, arch = int(sys.argv[1]), int(sys.argv[2]), \
+        sys.argv[3]
+    cfg = get_reduced(arch).replace(compute_dtype="float32",
+                                    grad_accum=accum)
     GB = 8
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=16,
                          global_batch=GB, seed=4)
@@ -294,13 +296,15 @@ STEP_WORKER = textwrap.dedent("""
 """)
 
 
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "moonshot-v1-16b-a3b",
+                                  "zamba2-1.2b", "xlstm-350m"])
 @pytest.mark.parametrize("ranks,model_parallel,accum",
                          [(2, 1, 2), (4, 2, 1)])
 def test_sharded_train_step_matches_one_process(ranks, model_parallel,
-                                                accum):
+                                                accum, arch):
     res = simdev.launch_local_fleet(
-        [sys.executable, "-c", STEP_WORKER, str(model_parallel), str(accum)],
-        ranks, timeout=TIMEOUT, extra_env={"OMP_NUM_THREADS": "1"})
+        [sys.executable, "-c", STEP_WORKER, str(model_parallel), str(accum),
+         arch], ranks, timeout=TIMEOUT, extra_env={"OMP_NUM_THREADS": "1"})
     for r in res:
         assert r.returncode == 0, r.stderr[-3000:]
     out = [simdev.last_json_line(r.stdout) for r in res]
@@ -311,10 +315,27 @@ def test_sharded_train_step_matches_one_process(ranks, model_parallel,
             assert abs(a - b) / abs(b) <= 1e-5, (o["got"], o["ref"])
         assert o["rel"] <= 1e-5, o["rel"]
     # the rules shard what they say: FSDP (embed) on data, TP (heads,
-    # ff) on model, which has size 1 on the (2, 1) mesh
+    # ff, experts, SSM heads, the LSTMs' ff) on model, which has size 1
+    # on the (2, 1) mesh
     pl = out[0]["placements"]
-    assert pl["['stack']['attn']['wq']"] == "(Shard(dim=1), Shard(dim=2))"
-    assert pl["['stack']['mlp']['w2']"] == "(Shard(dim=2), Shard(dim=1))"
+    want = {"qwen1.5-0.5b": {
+                "['stack']['attn']['wq']": "(Shard(dim=1), Shard(dim=2))",
+                "['stack']['mlp']['w2']": "(Shard(dim=2), Shard(dim=1))"},
+            "moonshot-v1-16b-a3b": {
+                "['stack']['mlp']['w1']": "(Shard(dim=2), Shard(dim=1))",
+                "['stack']['mlp']['router']": "(Shard(dim=1), Replicate())"},
+            "zamba2-1.2b": {
+                "['stack']['groups']['mamba']['x_proj']":
+                    "(Shard(dim=2), Shard(dim=3))",
+                "['stack']['groups']['mamba']['A_log']":
+                    "(Replicate(), Shard(dim=2))"},
+            "xlstm-350m": {
+                "['stack']['groups']['slstm']['w1']":
+                    "(Shard(dim=1), Shard(dim=2))",
+                "['stack']['groups']['mlstm']['wq']":
+                    "(Shard(dim=2), Shard(dim=3))"}}[arch]
+    for k, v in want.items():
+        assert pl[k] == v, (k, pl[k])
 
 
 def test_launcher_model_parallel_under_four_ranks(tmp_path):
@@ -348,12 +369,23 @@ def test_launcher_model_parallel_under_four_ranks(tmp_path):
     assert params["embed"]["table"].shape == like["embed"]["table"].shape
 
 
+class _Joined(Exception):
+    """Raised where a rank would join its group: the checks before it
+    have passed."""
+
+
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "dbrx-132b",
                                   "zamba2-1.2b", "xlstm-350m"])
-def test_launcher_ranks_refuse_unchecked_families(arch, monkeypatch):
+def test_launcher_ranks_take_the_sharded_families(arch, monkeypatch):
     from repro_torch.launch import train as tlaunch
+
+    def join(timeout_s):
+        raise _Joined(timeout_s)
+
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 9h"):
+    monkeypatch.setattr(tmesh, "init_fleet_group", join)
+    assert tconfigs.get_reduced(arch).family in tlaunch.SHARDED_FAMILIES
+    with pytest.raises(_Joined):
         tlaunch.setup(tlaunch.parse_args(
             ["--arch", arch, "--reduced", "--device", "cpu"]))
 

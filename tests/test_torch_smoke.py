@@ -567,3 +567,39 @@ def test_smoke_parallel_phase_on_the_cpu(cpu_smoke, capsys):
         assert w["sum_drift"] <= w["one_step_bound"] * (1 + 1e-5) + 1e-5
         assert w["wire_bytes_compressed"] * 4 == w["wire_bytes_plain"]
     assert set(launches.values()) == {0}
+
+
+def test_smoke_launch_tools_phase_on_the_cpu(cpu_smoke, capsys):
+    """Phase 16 on the CPU, cut to size: the dry run's prediction of the
+    reduced qwen's train and decode steps beside the steps run here
+    (the card's peak and busy gates need the card); the sweep cut to
+    the two committed reduced cells (qwen and moonshot ``train_4k`` on
+    16×16), their ``model_flops`` and ``cost.bytes_per_device``
+    reproduced; the pipeline of a 4-layer reduced qwen as 4 stages on 4
+    gloo CPU ranks within rel 1e-5 of the sequential forward. No kernel
+    launches."""
+    smoke, ops = cpu_smoke
+    spec = {"reduced": True, "seq_len": 16,
+            "sweep_archs": ["qwen1.5-0.5b", "moonshot-v1-16b-a3b"],
+            "sweep_shapes": "train_4k", "sweep_meshes": ("single",),
+            "pipe_layers": 4}
+    launches = smoke.phase_launch_tools(torch, ops, torch.device("cpu"),
+                                        "cpu", spec=spec)
+    lines = _phase_lines(capsys.readouterr().out)
+    steps = lines["launch_dryrun_vs_card"]
+    for k in ("train", "decode"):
+        pred = steps[k]["predicted"]
+        assert pred["peak_bytes"] >= pred["state_bytes"] > 0
+        assert 0.0 < pred["useful_flops_frac"] <= 1.0
+        assert pred["bound_s"] > 0.0 and steps[k]["measured"]["wall_ms"] > 0
+    cells = lines["launch_dryrun_sweep"]["cells"]
+    assert sorted((c["arch"], c["status"], c["mesh"]) for c in cells) == \
+        [("moonshot-smoke", "ok", "16x16"), ("qwen-smoke", "ok", "16x16")]
+    pipe = lines["launch_pipeline"]
+    assert pipe["stages"] == 4 and pipe["bubble_fraction"] == 3 / 7
+    assert len(pipe["workers"]) == 4
+    for w in pipe["workers"]:
+        assert w["rel"] <= smoke.PIPE_TOL
+        assert w["staged_bytes"] == 0           # CPU tensors go as they are
+    assert pipe["boundary_bytes_per_microbatch"] == 2 * 16 * 64 * 4
+    assert set(launches.values()) == {0}
