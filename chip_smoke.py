@@ -222,7 +222,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
      4-stage GPipe pipeline (``launch/pipeline.py``) on 4 ranks sharing
      the card, f32, 8 × 128 tokens in 4 microbatches, every rank
      within rel 1e-5 of one process's sequential forward; its wall,
-     bubble and the bytes at each boundary (the collective counter).
+     bubble and the bytes at each boundary (the collective counter);
+     then the pipelined train step of the whole model: every rank holds
+     the embedding and final norm replicated and its 6 blocks, embeds
+     ``TokenPipeline(seed=0)``'s batch, runs the pipeline forward and
+     backward (GPipe's stash, the reverse schedule), computes the loss
+     of the replicated output and takes one AdamW step (eps 1e-4,
+     clipped by the global norm across the ranks) on what it holds —
+     its loss, block gradients, embedding and final-norm gradients and
+     updated parameters within rel 1e-5 of one process's sequential
+     step; 1,048,576 B a microbatch at each boundary both ways; per
+     rank the forward, backward and update walls, the seconds in gloo's
+     send/recv/broadcast, the staged bytes and the peak memory, beside
+     the one process's step wall and peak.
 
 The ``kernels`` line counts each kernel's launches on the main path
 (phases 2–3) and in phases 5–16 (phase 9: what the ranks report; a
@@ -381,7 +393,7 @@ LAUNCH_SPEC = {"arch": "qwen1.5-0.5b", "reduced": False, "global_batch": 8,
                "pipe_stages": 4, "pipe_microbatches": 4, "pipe_layers": None}
 LAUNCH_PEAK_TOL = 0.10  # phase 16(a): predicted vs measured peak
 LAUNCH_SWEEP_TIMEOUT_S = 900.0   # (b): one dry-run process's deadline
-PIPE_TOL = 1e-5         # (c): the pipeline vs the sequential forward
+PIPE_TOL = 1e-5         # (c): the pipeline vs one process (forward, step)
 PIPE_SEED = 16
 PIPE_TIMEOUT_S = 600.0
 
@@ -3693,15 +3705,16 @@ def _par_reference(torch, spec, compute_dtype, dev, out_dir=None):
 
 
 class _Collectives:
-    """``torch.distributed.all_reduce`` / ``all_gather_into_tensor``
-    wrapped to add each call's seconds (synchronised on both sides)
-    and bytes (the tensor's) while ``on``."""
+    """``torch.distributed``'s ``names`` (by default ``all_reduce`` and
+    ``all_gather_into_tensor``) wrapped to add each call's seconds
+    (synchronised on both sides: the tensor's card, else ``dev`` when
+    it is one) and bytes (the tensor's) while ``on``."""
 
-    def __init__(self, torch, dist):
-        self.torch, self.dist, self.on = torch, dist, False
+    def __init__(self, torch, dist,
+                 names=("all_reduce", "all_gather_into_tensor"), dev=None):
+        self.torch, self.dist, self.on, self.dev = torch, dist, False, dev
         self.seconds, self.bytes, self.calls = 0.0, 0, 0
-        self.real = {n: getattr(dist, n) for n in
-                     ("all_reduce", "all_gather_into_tensor")}
+        self.real = {n: getattr(dist, n) for n in names}
         for name, fn in self.real.items():
             setattr(dist, name, self._wrap(fn))
 
@@ -3709,7 +3722,7 @@ class _Collectives:
         def timed(tensor, *args, **kw):
             if not self.on:
                 return fn(tensor, *args, **kw)
-            src = args[0] if fn is self.real["all_gather_into_tensor"] \
+            src = args[0] if fn is self.real.get("all_gather_into_tensor") \
                 else tensor
             self._sync(src)
             t0 = time.perf_counter()
@@ -3722,8 +3735,9 @@ class _Collectives:
         return timed
 
     def _sync(self, t):
-        if t.device.type == "cuda":
-            self.torch.cuda.synchronize(t.device)
+        dev = t.device if t.device.type == "cuda" else self.dev
+        if dev is not None and dev.type == "cuda":
+            self.torch.cuda.synchronize(dev)
 
     def take(self):
         out = {"seconds": self.seconds, "bytes": self.bytes,
@@ -4227,18 +4241,22 @@ def _pipe_layers(torch, cfg, layers, dev):
 
 
 def _pipe_blocks(cfg, p, h, first_layer):
-    """The dense stack's blocks of ``p`` over h (B, S, d), in order."""
+    """The dense stack's blocks of ``p`` over h (B, S, d), in order,
+    each rematerialised as ``cfg.remat`` says (``DenseStack.apply``'s
+    arithmetic)."""
     import torch
 
     from repro_torch.models import transformer as tf
 
     B, S = h.shape[:2]
-    pos = torch.arange(S, device=h.device)[None].expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=h.device)[None] \
+        .expand(B, S)
     windows = tf._layer_windows(cfg)
     for i in range(p["attn_norm"].shape[0]):
-        h, _, _ = tf._block_apply(tf.layer_slice(p, i), cfg, h, positions=pos,
-                                  mode="train", cache=None,
-                                  window=windows[first_layer + i])
+        def block(h, p_l=tf.layer_slice(p, i), w=windows[first_layer + i]):
+            return tf._block_apply(p_l, cfg, h, positions=pos, mode="train",
+                                   cache=None, window=w)[0]
+        h = tf._remat(block, cfg, "train")(h)
     return h
 
 
@@ -4248,11 +4266,192 @@ def _pipe_input(torch, cfg, spec, dev):
                        generator=g, device=dev, dtype=torch.float32)
 
 
+def _pipe_batch(torch, cfg, spec, dev):
+    from repro_torch.data.pipeline import TokenPipeline
+
+    b = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"],
+                      global_batch=spec["global_batch"], seed=0).batch(0)
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def _pipe_held(torch, cfg, layers, dev):
+    """What a pipeline rank holds of ``init_params(cfg, 0)``: the
+    embedding table (and an untied head) and the final norm,
+    replicated, and blocks ``layers`` of the stack; each leaf drawn on
+    its own from ``init_params``'s seed streams."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.layers import dense_init, embed_init, pdtype
+
+    def gen(*words):
+        return torch.Generator(device=dev).manual_seed(
+            model_lib.stream_seed(0, *words))
+
+    dt = pdtype(cfg)
+    held = {"embed": {"table": embed_init(
+                gen(model_lib._EMBED), (cfg.padded_vocab, cfg.d_model), dt,
+                device=dev)},
+            "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+            "stack": _pipe_layers(torch, cfg, layers, dev)}
+    if not cfg.tie_embeddings:
+        held["lm_head"] = {"w": dense_init(
+            gen(model_lib._HEAD), (cfg.d_model, cfg.padded_vocab), dt,
+            device=dev)}
+    return held
+
+
+def _pipe_loss(cfg, held, layers, batch, mesh, microbatches, stats):
+    """A rank's loss of the pipelined model, the same on every rank and
+    ``loss_fn``'s arithmetic: the replicated embedding, blocks
+    ``layers`` as this rank's stage of ``pipeline_apply``, then the
+    replicated final norm, head and cross-entropy of its replicated
+    output."""
+    from repro_torch.launch.pipeline import pipeline_apply
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.layers import cdtype, cross_entropy, rms_norm
+
+    h = model_lib._embed_in(cfg, held, batch, cdtype(cfg))
+    h = pipeline_apply(lambda p, h: _pipe_blocks(cfg, p, h, layers[0]),
+                       held["stack"], h, mesh=mesh, axis="pod",
+                       microbatches=microbatches, stats=stats)
+    h = rms_norm(h, held["final_norm"], cfg.norm_eps)
+    loss, _ = cross_entropy(model_lib._head(cfg, held, h), batch["labels"],
+                            cfg.vocab_size)
+    return loss
+
+
+def _pipe_step(torch, cfg, opt, held, state, batch, layers, mesh,
+               microbatches, stats, sync):
+    """One pipelined train step of this rank: the loss, the gradients of
+    what it holds (its stage's blocks; the replicated leaves whole), and
+    one ``opt`` step on them, clipped by the global gradient norm as one
+    process's ``opt.update`` clips (the blocks' squares summed over the
+    ranks, the replicated leaves' counted once). Returns (loss,
+    gradients, new held, new state, the forward, backward and update
+    walls)."""
+    import torch.distributed as dist
+
+    from repro_torch.pytree import leaves, tree_map, unflatten_like
+
+    def sumsq(tree):
+        return torch.stack([torch.square(g.to(torch.float32)).sum()
+                            for g in leaves(tree)]).sum()
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), held)
+    t0 = time.perf_counter()
+    loss = _pipe_loss(cfg, live, layers, batch, mesh, microbatches, stats)
+    sync()
+    t1 = time.perf_counter()
+    grads = unflatten_like(held, list(torch.autograd.grad(
+        loss, leaves(live))))
+    sync()
+    t2 = time.perf_counter()
+    scaled = grads
+    if opt.clip_norm:
+        blocks = sumsq(grads["stack"]).cpu()
+        dist.all_reduce(blocks, group=mesh.get_group("pod"))
+        gnorm = torch.sqrt(blocks.to(loss.device) + sumsq(
+            {k: v for k, v in grads.items() if k != "stack"}))
+        scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
+        scaled = tree_map(lambda g: g * scale, grads)
+    new, state, _ = dataclasses.replace(opt, clip_norm=0.0).update(
+        scaled, state, held)
+    del scaled
+    sync()
+    walls = {"forward_s": t1 - t0, "backward_s": t2 - t1,
+             "update_s": time.perf_counter() - t2}
+    return loss.detach(), grads, new, state, walls
+
+
+def _leaf_file(path):
+    """``['stack']['attn']['wq']`` → ``stack.attn.wq.npy``."""
+    return path.strip("[]'").replace("']['", ".") + ".npy"
+
+
+def _pipe_compare(torch, ref_dir, tree, layers, dev):
+    """``tree`` against the one process's leaves under ``ref_dir`` (the
+    stack's at ``layers``): ``rel``, the max over leaves of each leaf's
+    rel (``_tree_rel``'s), its ``worst`` leaf, and ``tree_rel``, the
+    largest difference over the largest magnitude in the tree (phase
+    15's ``params_rel``)."""
+    import numpy as np
+
+    from repro_torch.pytree import flatten_with_path
+
+    worst, where, diff, big = 0.0, None, 0.0, 0.0
+    for path, leaf in flatten_with_path(tree):
+        want = np.load(os.path.join(ref_dir, _leaf_file(path)),
+                       mmap_mode="r")
+        if path.startswith("['stack']"):
+            want = want[layers[0]:layers[-1] + 1]
+        want = torch.from_numpy(np.ascontiguousarray(want)).to(dev)
+        d = float((leaf.double() - want.double()).abs().max())
+        b = float(want.abs().max())
+        diff, big = max(diff, d), max(big, b)
+        if d / max(b, 1e-12) >= worst:
+            worst, where = d / max(b, 1e-12), path
+    return {"rel": worst, "worst": where, "tree_rel": diff / max(big, 1e-12)}
+
+
+def _pipe_train(torch, dist, cfg, spec, held, layers, mesh, dev, sync):
+    """(c)'s train step on this rank, run twice from the same start (the
+    first warms the backward's libraries up); the second's loss,
+    gradients and updated parameters against the one process's, with
+    its walls, seconds in the links, staged bytes, collectives and
+    peak memory."""
+    from repro_torch.launch.roofline import CollectiveCounter
+
+    on_card = dev.type == "cuda"
+    opt = _par_optimizer(1)
+    batch = _pipe_batch(torch, cfg, spec, dev)
+    state = opt.init(held)
+    col = _Collectives(torch, dist, names=("send", "recv", "broadcast",
+                                           "all_reduce"), dev=dev)
+    runs = []
+    try:
+        for _ in range(2):
+            stats = {}
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            sync()
+            col.on = True
+            t0 = time.perf_counter()
+            with CollectiveCounter() as c:
+                loss, grads, new, _, walls = _pipe_step(
+                    torch, cfg, opt, held, state, batch, layers, mesh,
+                    spec["pipe_microbatches"], stats, sync)
+            wall = time.perf_counter() - t0
+            col.on = False
+            link = col.take()
+            runs.append({"wall_s": wall, **walls,
+                         "link_s": link["seconds"],
+                         "other_s": wall - link["seconds"],
+                         "link_calls": link["calls"],
+                         "link_bytes": link["bytes"], **stats,
+                         "by_op": c.stats.by_op, "counts": c.stats.counts,
+                         "peak_cuda_bytes": torch.cuda.max_memory_allocated(
+                             dev) if on_card else None})
+    finally:
+        col.close()
+    rep = {k: v for k, v in grads.items() if k != "stack"}
+    out = {"loss": float(loss), "warm_up": runs[0], **runs[-1]}
+    ref = spec["ref_dir"]
+    out["block_grads"] = _pipe_compare(
+        torch, os.path.join(ref, "grads"), {"stack": grads["stack"]}, layers,
+        dev)
+    out["replicated_grads"] = _pipe_compare(
+        torch, os.path.join(ref, "grads"), rep, layers, dev)
+    out["params"] = _pipe_compare(torch, os.path.join(ref, "params"), new,
+                                  layers, dev)
+    return out
+
+
 def _pipeline_worker(spec) -> int:
     """One stage of phase 16(c), started by ``launch_local_fleet``:
-    builds its own blocks, runs ``pipeline_apply`` on the ``pod`` mesh
-    of the ranks, writes its output for the parent and prints one JSON
-    line."""
+    builds what it holds, runs ``pipeline_apply``'s forward on the
+    ``pod`` mesh of the ranks (its output written for the parent), then
+    the pipelined train step against the one process's (written by the
+    parent), and prints one JSON line."""
     import torch
     import torch.distributed as dist
 
@@ -4265,43 +4464,110 @@ def _pipeline_worker(spec) -> int:
     torch.backends.cudnn.allow_tf32 = False
     rank = mesh_lib.init_fleet_group(PAR_GROUP_TIMEOUT_S)
     dev = mesh_lib.rank_device(spec["device"])
-    if dev.type == "cuda":
+    on_card = dev.type == "cuda"
+    if on_card:
         torch.cuda.set_device(dev)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
     cfg = _pipe_config(spec)
     n = spec["pipe_stages"]
     mesh = mesh_lib.make_mesh((n,), ("pod",), "cpu")
     s = stage_index("pod", mesh=mesh)
     per = cfg.num_layers // n
     layers = list(range(s * per, (s + 1) * per))
-    params = _pipe_layers(torch, cfg, layers, dev)
+    held = _pipe_held(torch, cfg, layers, dev)
     x = _pipe_input(torch, cfg, spec, dev)
     with torch.no_grad():     # warm-up: the libraries' first calls
-        _pipe_blocks(cfg, params, x[:1], layers[0])
+        _pipe_blocks(cfg, held["stack"], x[:1], layers[0])
     stats = {}
     dist.barrier()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     with CollectiveCounter() as c:
         out = pipeline_apply(
-            lambda p, h: _pipe_blocks(cfg, p, h, layers[0]), params, x,
-            mesh=mesh, axis="pod", microbatches=spec["pipe_microbatches"],
+            lambda p, h: _pipe_blocks(cfg, p, h, layers[0]), held["stack"],
+            x, mesh=mesh, axis="pod", microbatches=spec["pipe_microbatches"],
             stats=stats)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    sync()
     wall = time.perf_counter() - t0
     torch.save(out.cpu(), os.path.join(spec["out_dir"], f"stage{s}.pt"))
-    print(json.dumps({"rank": rank, "stage": s, "layers": layers,
-                      "wall_s": wall, "by_op": c.stats.by_op,
-                      "counts": c.stats.counts, **stats}), flush=True)
+    row = {"rank": rank, "stage": s, "layers": layers, "wall_s": wall,
+           "graph": out.grad_fn is not None, "by_op": c.stats.by_op,
+           "counts": c.stats.counts, **stats}
+    del out, x
+    row["train"] = _pipe_train(torch, dist, cfg, spec, held, layers, mesh,
+                               dev, sync)
+    print(json.dumps(row), flush=True)
     dist.barrier()
     dist.destroy_process_group()
     return 0
 
 
+def _pipe_reference(torch, cfg, spec, dev, ref_dir):
+    """One process's sequential step of the same model on ``dev``
+    (``init_params(cfg, 0)``, ``value_and_grad`` and one AdamW step, the
+    second of two runs timed; its gradients and new parameters written
+    under ``ref_dir``, one ``.npy`` a leaf) and its no-grad forward of
+    the blocks over the random input (returned on the host; the second
+    of two runs timed)."""
+    import numpy as np
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.train import steps as steps_lib
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    params = model_lib.init_params(cfg, 0, device=dev)
+    x = _pipe_input(torch, cfg, spec, dev)
+    with torch.no_grad():
+        for _ in range(2):     # the first loads the libraries' kernels
+            sync()
+            t0 = time.perf_counter()
+            want = _pipe_blocks(cfg, params["stack"], x, 0)
+            sync()
+            forward_s = time.perf_counter() - t0
+    want = want.cpu()
+    del x
+    opt = _par_optimizer(1)
+    batch = _pipe_batch(torch, cfg, spec, dev)
+    walls = []
+    for _ in range(2):
+        grads = new = None
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync()
+        t0 = time.perf_counter()
+        metrics, grads = steps_lib.value_and_grad(cfg, params, batch)
+        new, _, _ = opt.update(grads, opt.init(params), params)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    one = {"loss": float(metrics["loss"]), "step_s": walls[-1],
+           "warm_up_step_s": walls[0], "sequential_forward_s": forward_s,
+           "peak_cuda_bytes": torch.cuda.max_memory_allocated(dev)
+           if on_card else None}
+    for name, tree in (("grads", grads), ("params", new)):
+        os.makedirs(os.path.join(ref_dir, name))
+        for path, leaf in flatten_with_path(tree):
+            np.save(os.path.join(ref_dir, name, _leaf_file(path)),
+                    leaf.detach().cpu().numpy())
+    del params, grads, new
+    if on_card:
+        torch.cuda.empty_cache()
+    return one, want
+
+
 def _launch_pipeline(torch, spec, dev, root):
     """(c): the dense stack's blocks as pipe_stages stages on as many
-    ranks sharing ``dev``, against one process's sequential forward."""
+    ranks sharing ``dev``: the forward against one process's sequential
+    forward, then the pipelined train step against one process's."""
     from repro_torch.launch import simdev
     from repro_torch.launch.pipeline import bubble_fraction
 
@@ -4309,8 +4575,12 @@ def _launch_pipeline(torch, spec, dev, root):
     n, m = spec["pipe_stages"], spec["pipe_microbatches"]
     _require(cfg.num_layers % n == 0, f"phase 16(c): {cfg.num_layers} "
                                       f"layers do not split into {n}")
+    ref_dir = os.path.join(root, "pipe_ref")
+    t0 = time.perf_counter()
+    one, want = _pipe_reference(torch, cfg, spec, dev, ref_dir)
+    one_s = time.perf_counter() - t0
     wspec = dict(spec, device=None if dev.type == "cuda" else str(dev),
-                 out_dir=root)
+                 out_dir=root, ref_dir=ref_dir)
     t0 = time.perf_counter()
     res = simdev.launch_local_fleet(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
@@ -4321,37 +4591,56 @@ def _launch_pipeline(torch, spec, dev, root):
         _require(r.returncode == 0, f"phase 16(c): rank {r.rank}: "
                                     f"{r.stderr_tail}")
         workers.append(simdev.last_json_line(r.stdout))
-    x = _pipe_input(torch, cfg, spec, dev)
-    with torch.no_grad():
-        t1 = time.perf_counter()
-        want = _pipe_blocks(cfg, _pipe_layers(
-            torch, cfg, range(cfg.num_layers), dev), x, 0)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        seq_s = time.perf_counter() - t1
-    want = want.cpu()
     mb_bytes = spec["global_batch"] // m * spec["seq_len"] * \
         cfg.d_model * 4
     for w in workers:
-        got = torch.load(os.path.join(root, f"stage{w['stage']}.pt"))
+        s = w["stage"]
+        got = torch.load(os.path.join(root, f"stage{s}.pt"))
         w["rel"] = _rel(got, want)
-        _require(w["rel"] <= PIPE_TOL, f"phase 16(c): stage {w['stage']} "
-                                       f"rel {w['rel']:.3g}")
+        _require(w["rel"] <= PIPE_TOL and not w["graph"],
+                 f"phase 16(c): stage {s} rel {w['rel']:.3g}, graph "
+                 f"{w['graph']}")
         sends = w["counts"].get("collective-permute", 0)
         w["boundary_bytes_per_microbatch"] = \
             w["by_op"].get("collective-permute", 0.0) / sends if sends \
             else None
-        _require(sends == (m if w["stage"] < n - 1 else 0) and
+        _require(sends == (m if s < n - 1 else 0) and
                  (not sends or w["boundary_bytes_per_microbatch"] ==
-                  mb_bytes), f"phase 16(c): stage {w['stage']} sent "
+                  mb_bytes), f"phase 16(c): stage {s} sent "
                              f"{w['by_op']} in {w['counts']}")
+        t = w["train"]
+        # the gradients leaf by leaf; the parameters over the tree, as
+        # phase 15 holds them: a zero-initialised bias moves by ±lr in
+        # its first AdamW step, where eps turns a gradient's rounding
+        # into a step (ROADMAP "Parity traps")
+        t["loss_rel"] = abs(t["loss"] - one["loss"]) / abs(one["loss"])
+        got = {"loss": t["loss_rel"],
+               "block gradients": t["block_grads"]["rel"],
+               "replicated gradients": t["replicated_grads"]["rel"],
+               "parameters": t["params"]["tree_rel"]}
+        for k, v in got.items():
+            _require(v <= PIPE_TOL, f"phase 16(c): stage {s} train {k} "
+                     f"rel {v:.3g} (loss {t['loss']} vs {one['loss']}; "
+                     f"{t['block_grads']}, {t['replicated_grads']}, "
+                     f"{t['params']})")
+        sends = t["counts"].get("collective-permute", 0)
+        t["boundary_bytes_per_microbatch"] = \
+            t["by_op"].get("collective-permute", 0.0) / sends
+        _require(sends == m * ((s < n - 1) + (s > 0)) and
+                 t["boundary_bytes_per_microbatch"] == mb_bytes and
+                 t["counts"].get("broadcast") == 2,
+                 f"phase 16(c): stage {s} train step sent {t['by_op']} "
+                 f"in {t['counts']}")
     return {"stages": n, "microbatches": m,
             "layers_per_stage": cfg.num_layers // n,
             "bubble_fraction": bubble_fraction(n, m),
             "boundary_bytes_per_microbatch": mb_bytes,
-            "ranks_seconds": ranks_s, "sequential_s": seq_s,
+            "ranks_seconds": ranks_s, "one_process_seconds": one_s,
+            "sequential_s": one["sequential_forward_s"],
             "pipeline_wall_s": max(w["wall_s"] for w in workers),
-            "tol": PIPE_TOL, "workers": workers}
+            "train_step_wall_s": max(w["train"]["wall_s"]
+                                     for w in workers),
+            "one_process": one, "tol": PIPE_TOL, "workers": workers}
 
 
 def phase_launch_tools(torch, ops, dev, card, spec=None):
@@ -4372,10 +4661,15 @@ def phase_launch_tools(torch, ops, dev, card, spec=None):
     each rank building only its own blocks, every rank's output within
     PIPE_TOL of one process's sequential forward; the wall, the
     bubble fraction and the bytes that cross each boundary (the
-    collective counter). ``spec`` overrides LAUNCH_SPEC (the CPU
-    rehearsal passes reduced ones). Returns the phase's kernel
-    launches (none: the dry run only counts, and the steps and the
-    pipeline are plain products, as the reference's are jnp)."""
+    collective counter); then the pipelined train step of the whole
+    model (``_pipe_step``: the embedding and final norm replicated,
+    each rank's blocks a stage, one AdamW step on what it holds) held
+    to one process's sequential step at PIPE_TOL — loss, gradients,
+    updated parameters — with M sends each way at each boundary.
+    ``spec`` overrides LAUNCH_SPEC (the CPU rehearsal passes reduced
+    ones). Returns the phase's kernel launches (none: the dry run only
+    counts, and the steps and the pipeline are plain products, as the
+    reference's are jnp)."""
     import shutil
 
     spec = dict(LAUNCH_SPEC, **(spec or {}))

@@ -16,7 +16,7 @@
   * :mod:`repro_torch.launch.dryrun` — every (arch × shape × mesh)
     cell's step counted on a fake group, allocating nothing;
   * :mod:`repro_torch.launch.pipeline` — the GPipe schedule over the
-    ``pod`` axis, one stage a rank.
+    ``pod`` axis, one stage a rank, forward and backward.
 
 Port of ``repro.launch``.
 """

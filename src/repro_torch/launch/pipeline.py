@@ -18,18 +18,33 @@ boundary (the reference's ``ppermute``), and the last stage's
 collected outputs are broadcast to every stage (the reference's
 one-hot ``psum``), so every rank returns the same (B, ...) array.
 
+Forward and backward. With grad mode off, or when neither ``x`` nor a
+stage parameter requires a gradient (serving, evaluation), the
+schedule runs under ``no_grad`` and keeps nothing. Otherwise it is
+differentiable, as the reference composes with ``jax.grad``. The
+forward stashes each microbatch's graph on its stage: the received
+input, as a leaf that requires a gradient, and the stage's output
+(GPipe's activation stash; a stage that wants less memory remats
+inside ``stage_fn``). The backward runs the schedule in reverse,
+microbatches last to first: the last stage starts from the cotangent
+of its own collected outputs, every other stage receives d h_out from
+its right neighbour, and each sends d h_in to its left one — one hop a
+microbatch and a boundary, leftwards. A stage's parameter gradients
+are summed over the microbatches onto its own leaves. The output is
+replicated, so every rank calls ``backward`` on the same loss of it
+(the reference's one global loss outside ``shard_map``); only the last
+stage's cotangent is used, never the ranks' sum. ``x`` is replicated
+too: when it requires a gradient, stage 0 assembles d x over the
+microbatches and broadcasts it, so every rank holds the whole d x.
+
 Transport. On an NCCL group, and for CPU tensors, the activation is
 sent as it is. On a gloo group a CUDA activation crosses through a
 pinned host buffer: it is copied to the host, sent, received into a
 host buffer and copied to the receiver's device (the same for the
-broadcast). The route follows the group's backend and the tensor's
-device alone, and ``stats["staged_bytes"]`` counts the bytes copied
-between device and host. (The card's run decided it: see ROADMAP,
-"Pipeline transport".)
-
-``pipeline_apply`` is forward only (serving, evaluation), as the
-reference documents and tests it; a stage parameter that requires a
-gradient raises: the backward is ROADMAP Queue 1 item 9i.
+broadcasts and the backward's sends). The route follows the group's
+backend and the tensor's device alone, and ``stats["staged_bytes"]``
+counts the bytes copied between device and host. (The card's run
+decided it: see ROADMAP, "Pipeline transport".)
 """
 from __future__ import annotations
 
@@ -37,7 +52,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.pytree import leaves
+from repro_torch.pytree import leaves, unflatten_like
 
 
 def stage_index(axis: str = "pod", *, mesh=None) -> int:
@@ -48,6 +63,8 @@ def stage_index(axis: str = "pod", *, mesh=None) -> int:
         from repro_torch.sharding import current_mesh
         mesh = current_mesh()
     return mesh.get_local_rank(axis)
+
+
 
 
 class _Link:
@@ -102,53 +119,142 @@ class _Link:
         return t
 
 
-@torch.no_grad()
-def pipeline_apply(stage_fn: Callable, stage_params, x: torch.Tensor, *,
-                   mesh, axis: str = "pod", microbatches: int,
-                   stats: Optional[Dict] = None) -> torch.Tensor:
-    """Run ``stage_fn`` as an S-deep GPipe pipeline, S = the size of
-    ``mesh``'s ``axis``. Collective: every rank of the axis calls it.
 
-    stage_fn: (params_for_stage, h) -> h, shape-preserving (one layer
-        block).
-    stage_params: this rank's stage's parameters (a pytree).
-    x: (B, ...) the whole batch, the same on every rank;
-        B % microbatches == 0.
-    stats: a dict that gains ``staged_bytes`` (device↔host copies of
-        the gloo route; 0 on every other route).
-    Returns ``stage_fn`` applied S times over the stages in order, the
-    same (B, ...) tensor on every rank.
-    """
-    if any(isinstance(p, torch.Tensor) and p.requires_grad
-           for p in leaves(stage_params)):
-        raise NotImplementedError(
-            "pipeline_apply is forward only: a stage parameter requires "
-            "a gradient (the pipeline's backward is ROADMAP Queue 1 item "
-            "9i)")
+
+def _microbatches(x: torch.Tensor, microbatches: int) -> torch.Tensor:
+    """(B, ...) → (M, B/M, ...)."""
     B = x.shape[0]
     if microbatches < 1 or B % microbatches != 0:
         raise ValueError(f"pipeline_apply: batch {B} does not split into "
                          f"{microbatches} microbatches")
+    return x.reshape(microbatches, B // microbatches, *x.shape[1:])
+
+
+class _Schedule:
+    """One call's schedule on this rank: its stage among ``n_stages``
+    and the link to its neighbours (None for one stage)."""
+
+    def __init__(self, mesh, axis: str, microbatches: int, stats: Dict):
+        self.n_stages = mesh.size(mesh.mesh_dim_names.index(axis))
+        self.sidx = stage_index(axis, mesh=mesh)
+        self.microbatches = microbatches
+        self.last = self.sidx == self.n_stages - 1
+        self.link = _Link(mesh.get_group(axis), stats) \
+            if self.n_stages > 1 else None
+
+    def ticks(self):
+        """The microbatches this stage runs, in tick order: at tick t
+        microbatch t − s, the bubble skipped."""
+        for t in range(self.n_stages + self.microbatches - 1):
+            m = t - self.sidx
+            if 0 <= m < self.microbatches:
+                yield m
+
+    def forward(self, run: Callable, mbs: torch.Tensor) -> torch.Tensor:
+        """``run(m, h)`` over the ticks; the last stage's outputs, (M,
+        B/M, ...), broadcast to every stage."""
+        outs = torch.zeros_like(mbs)
+        for m in self.ticks():
+            h = mbs[m] if self.sidx == 0 else \
+                self.link.recv(mbs[m], self.sidx - 1)
+            h = run(m, h)
+            if not self.last:
+                self.link.send(h, self.sidx + 1)
+            else:
+                outs[m] = h
+        if self.link is not None:
+            outs = self.link.broadcast(outs, self.n_stages - 1)
+        return outs
+
+
+class _Pipeline(torch.autograd.Function):
+    """The whole schedule as one autograd node. Its inputs are ``x`` and
+    this stage's parameter leaves; the forward keeps each microbatch's
+    (input leaf, output) graph, the backward runs the reverse schedule
+    over it."""
+
+    @staticmethod
+    def forward(ctx, sched, stage_fn, stage_params, x, *params):
+        live = [p.detach().requires_grad_(p.requires_grad) for p in params]
+        tree = unflatten_like(stage_params, live)
+        d_in = sched.sidx > 0 or x.requires_grad
+        stash = {}
+
+        def run(m, h):
+            h = h.detach().requires_grad_(d_in)
+            with torch.enable_grad():
+                out = stage_fn(tree, h)
+            stash[m] = (h, out)
+            return out.detach()
+
+        outs = sched.forward(run, _microbatches(x, sched.microbatches))
+        ctx.sched, ctx.stash, ctx.live = sched, stash, live
+        return outs.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        sched, stash, live = ctx.sched, ctx.stash, ctx.live
+        ctx.stash = ctx.live = None
+        d_outs = _microbatches(d_out, sched.microbatches)
+        wrt = [p for p in live if p.requires_grad]
+        sums = [None] * len(wrt)
+        want_x = ctx.needs_input_grad[3]
+        dxs = torch.zeros_like(d_outs) if want_x else None
+        for m in reversed(list(sched.ticks())):
+            h_in, h_out = stash.pop(m)
+            dh = d_outs[m] if sched.last else \
+                sched.link.recv(h_out, sched.sidx + 1)
+            ins = ([h_in] if h_in.requires_grad else []) + wrt
+            grads = torch.autograd.grad(h_out, ins, dh, allow_unused=True)
+            if h_in.requires_grad:
+                d_h, grads = grads[0], grads[1:]
+                if sched.sidx > 0:
+                    sched.link.send(d_h, sched.sidx - 1)
+                else:
+                    dxs[m] = d_h
+            sums = [s if g is None else g if s is None else s + g
+                    for s, g in zip(sums, grads)]
+            del h_in, h_out, dh, grads
+        if want_x and sched.link is not None:
+            dxs = sched.link.broadcast(dxs, 0)
+        it = iter(sums)
+        d_params = [next(it) if p.requires_grad else None for p in live]
+        dx = dxs.reshape(d_out.shape) if want_x else None
+        return (None, None, None, dx, *d_params)
+
+
+def pipeline_apply(stage_fn: Callable, stage_params, x: torch.Tensor, *,
+                   mesh, axis: str = "pod", microbatches: int,
+                   stats: Optional[Dict] = None) -> torch.Tensor:
+    """Run ``stage_fn`` as an S-deep GPipe pipeline, S = the size of
+    ``mesh``'s ``axis``. Collective: every rank of the axis calls it,
+    and where its output is differentiated, every rank calls
+    ``backward`` on the same loss of it.
+
+    stage_fn: (params_for_stage, h) -> h, shape-preserving (one layer
+        block).
+    stage_params: this rank's stage's parameters (a pytree of tensors);
+        their gradients, summed over the microbatches, land on them.
+    x: (B, ...) the whole batch, the same on every rank;
+        B % microbatches == 0. Its gradient is the whole d x, the same
+        on every rank.
+    stats: a dict that gains ``staged_bytes`` (device↔host copies of
+        the gloo route, the backward's included; 0 on every other
+        route).
+    Returns ``stage_fn`` applied S times over the stages in order, the
+    same (B, ...) tensor on every rank.
+    """
+    mbs = _microbatches(x, microbatches)
     stats = {} if stats is None else stats
     stats.setdefault("staged_bytes", 0)
-    n_stages = mesh.size(mesh.mesh_dim_names.index(axis))
-    sidx = stage_index(axis, mesh=mesh)
-    mbs = x.reshape(microbatches, B // microbatches, *x.shape[1:])
-    link = _Link(mesh.get_group(axis), stats) if n_stages > 1 else None
-    outs = torch.zeros_like(mbs)
-    for t in range(n_stages + microbatches - 1):
-        m = t - sidx
-        if not 0 <= m < microbatches:
-            continue                     # the bubble: this stage idles
-        h = mbs[m] if sidx == 0 else link.recv(mbs[m], sidx - 1)
-        h = stage_fn(stage_params, h)
-        if sidx < n_stages - 1:
-            link.send(h, sidx + 1)
-        else:
-            outs[m] = h
-    if link is not None:
-        outs = link.broadcast(outs, n_stages - 1)
-    return outs.reshape(B, *x.shape[1:])
+    sched = _Schedule(mesh, axis, microbatches, stats)
+    params = leaves(stage_params)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in params)):
+        return _Pipeline.apply(sched, stage_fn, stage_params, x, *params)
+    with torch.no_grad():
+        outs = sched.forward(lambda m, h: stage_fn(stage_params, h), mbs)
+    return outs.reshape(x.shape)
 
 
 def bubble_fraction(n_stages: int, microbatches: int) -> float:

@@ -1095,6 +1095,69 @@ def test_gpu_pipeline_on_two_ranks_sharing_the_card(cuda):
     assert [o["staged_bytes"] for o in outs] == [8 * mb, 8 * mb]
 
 
+PIPE_GRAD_WORKER = """
+import json
+import numpy as np
+import torch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.pipeline import pipeline_apply, stage_index
+
+torch.backends.cuda.matmul.allow_tf32 = False
+rank = mesh_lib.init_fleet_group(60)
+dev = mesh_lib.rank_device()
+torch.cuda.set_device(dev)
+rng = np.random.default_rng(7)
+w = torch.from_numpy((rng.standard_normal((2, 16, 16)) / 4.0)
+                     .astype(np.float32)).to(dev)
+x = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32)).to(dev)
+mesh = mesh_lib.make_mesh((2,), ("pod",), "cpu")
+s = stage_index("pod", mesh=mesh)
+stats = {}
+ws = w[s].clone().requires_grad_()
+xs = x.clone().requires_grad_()
+out = pipeline_apply(lambda p, h: torch.tanh(h @ p), ws, xs, mesh=mesh,
+                     microbatches=4, stats=stats)
+(out ** 2).sum().backward()
+# one process's autograd of the sequential stages on the card
+wr = w.clone().requires_grad_()
+xr = x.clone().requires_grad_()
+(torch.tanh(torch.tanh(xr @ wr[0]) @ wr[1]) ** 2).sum().backward()
+print(json.dumps({"rank": rank, "stage": s, "device": str(out.device),
+                  "dw": float((ws.grad - wr.grad[s]).abs().max()),
+                  "dx": float((xs.grad - xr.grad).abs().max()),
+                  "staged_bytes": stats["staged_bytes"]}), flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_pipeline_backward_on_two_ranks_sharing_the_card(cuda):
+    """``pipeline_apply`` differentiated with two stages on two ranks
+    sharing the card, the reference test's stage (``tanh(h @ W[s])``, B
+    8, D 16, 4 microbatches): each stage's d W and every rank's d x
+    within 1e-6 of one process's CUDA autograd; the staged bytes count
+    both directions and the d x broadcast."""
+    import json
+    import sys
+
+    from repro_torch.launch import simdev
+    res = simdev.launch_local_fleet([sys.executable, "-c", PIPE_GRAD_WORKER],
+                                    2, timeout=120.0)
+    outs = []
+    for r in res:
+        assert r.returncode == 0, r.stderr_tail
+        outs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    for o in outs:
+        assert o["device"] == "cuda:0", o
+        assert o["dw"] < 1e-6 and o["dx"] < 1e-6, o
+    # each rank: the forward's 8 microbatches (its sends or receives, and
+    # the outputs' broadcast), then 4 d h microbatches leftwards (stage 1
+    # to the host, stage 0 from it) and the (4, 2, 16) d x broadcast
+    mb = 2 * 16 * 4
+    assert [o["staged_bytes"] for o in sorted(outs, key=lambda o:
+                                              o["stage"])] == \
+        [16 * mb, 16 * mb]
+
+
 DRYRUN_WORKER = """
 import json
 import torch

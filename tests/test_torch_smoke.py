@@ -576,7 +576,9 @@ def test_smoke_launch_tools_phase_on_the_cpu(cpu_smoke, capsys):
     the two committed reduced cells (qwen and moonshot ``train_4k`` on
     16×16), their ``model_flops`` and ``cost.bytes_per_device``
     reproduced; the pipeline of a 4-layer reduced qwen as 4 stages on 4
-    gloo CPU ranks within rel 1e-5 of the sequential forward. No kernel
+    gloo CPU ranks within rel 1e-5 of the sequential forward, then its
+    pipelined train step (loss, gradients, one AdamW step) within rel
+    1e-5 of one process's, M sends each way at each boundary. No kernel
     launches."""
     smoke, ops = cpu_smoke
     spec = {"reduced": True, "seq_len": 16,
@@ -599,7 +601,15 @@ def test_smoke_launch_tools_phase_on_the_cpu(cpu_smoke, capsys):
     assert pipe["stages"] == 4 and pipe["bubble_fraction"] == 3 / 7
     assert len(pipe["workers"]) == 4
     for w in pipe["workers"]:
-        assert w["rel"] <= smoke.PIPE_TOL
+        assert w["rel"] <= smoke.PIPE_TOL and not w["graph"]
         assert w["staged_bytes"] == 0           # CPU tensors go as they are
+        t = w["train"]
+        assert max(t["loss_rel"], t["block_grads"]["rel"],
+                   t["replicated_grads"]["rel"], t["params"]["tree_rel"]) \
+            <= smoke.PIPE_TOL
+        assert t["staged_bytes"] == 0 and t["counts"]["broadcast"] == 2
+        assert t["counts"]["collective-permute"] == \
+            4 * ((w["stage"] < 3) + (w["stage"] > 0))
+        assert 0.0 <= t["link_s"] <= t["wall_s"]
     assert pipe["boundary_bytes_per_microbatch"] == 2 * 16 * 64 * 4
     assert set(launches.values()) == {0}
