@@ -123,7 +123,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      full width (bits 32, 8, 6, 4 × sigmoid, threshold, 250 steps
      each; the reference benchmark's rule printed, not gated) and a
      variation-aware net against the clean one on phase 5's noisy
-     chip; (c) the full-width qwen1.5-0.5B trained 6 steps (global
+     chip; (c) the full-width qwen1.5-0.5B (12 of its 24 layers:
+     ``TRAIN_LAYERS``) trained 6 steps (global
      batch 8 × 128 tokens, 2 microbatches, AdamW, bf16 compute,
      remat "full", checkpoints every 3 steps in a temporary
      directory), the same job stopped after its step-3 checkpoint and
@@ -181,8 +182,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``Engine`` drain; (d) both trained through
      ``repro_torch.launch.train`` (global batch 8 × 512 tokens, the
      configs' bf16 compute, remat and
-     accumulation, AdamW): zamba2 2 steps with no checkpoint, xlstm 4
-     steps checkpointed every 2 in a temporary directory, stopped after
+     accumulation, AdamW; 12 of zamba2's 38 layers and 8 of xlstm's
+     24): zamba2 2 steps with no checkpoint, xlstm 4 steps
+     checkpointed every 2 in a temporary directory, stopped after
      step 2 and resumed, equal to the straight run to the bit; each
      step's loss and wall, a further step's busy time and kernels, peak
      memory, xlstm's checkpoint seconds and bytes.
@@ -195,8 +197,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      parameters (``steps.make_dp_train_step``: each rank its half of
      every microbatch, the f32 gradients all-reduced over gloo on the
      card's tensors; gloo's functional collectives, which DTensor
-     issues, crash on CUDA tensors, so the DTensor step runs on CPU
-     ranks only); each rank's f32 losses and final parameters within
+     issues, crash on CUDA tensors, so phase 17 runs the DTensor step
+     over the staged group); each rank's f32 losses and final
+     parameters within
      rel 1e-5 of the one process's, its bf16 losses within 1e-3; per
      rank each step's wall and seconds and bytes in collectives, a
      further step's busy time and kernels, peak memory; (b)
@@ -236,9 +239,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
      send/recv/broadcast, the staged bytes and the peak memory, beside
      the one process's step wall and peak.
 
+ 17. sharded: qwen1.5-0.5B sharded FSDP × TP on 4 ranks sharing the
+     card (``make_debug_mesh(model=2)``: {'data': 2, 'model': 2}; one
+     process group whose CUDA collectives go through the staged
+     backend — pinned host buffers and gloo — so DTensor runs on the
+     card's tensors), f32, held to one process's run of the same jobs
+     on the card: (a) serving at full width with the weights resident
+     (the decode rules): a prefill of 4 × 128 tokens and 16 greedy
+     decode steps into a cache of 256 with its sequence on ``model``,
+     every step's logits within rel 1e-5, the tokens equal up to a
+     top-2 tie; (b) 3 train steps of global batch 8 × 128 (2
+     microbatches), AdamW eps 1e-4: losses and the final parameters
+     within rel 1e-5, ``wq`` and ``w2`` sharded on both axes; (c) the
+     launcher itself on the 4 ranks (``--model-parallel 2``, a step-2
+     checkpoint of ~5.6 GB gathered on every rank and written by rank
+     0) at the config's bf16 compute, then resumed from a copy of it on
+     a (4, 1) mesh, its step-2 loss within rel 1e-3; (d) the reduced
+     MoE, hybrid and ssm configs: a train step and a 4-token decode
+     each against one process's.
+     Per rank the step walls, the staged bytes and seconds, the peak
+     memory, beside one process's.
+
 The ``kernels`` line counts each kernel's launches on the main path
-(phases 2–3) and in phases 5–16 (phase 9: what the ranks report; a
-killed rank reports nothing; phases 14–16 launch none).
+(phases 2–3) and in phases 5–17 (phase 9: what the ranks report; a
+killed rank reports nothing; phases 14–17 launch none).
 
 It prints the card's name and power limit first, one JSON line per
 measurement, the kernel table as one ``{"kernels": [...]}`` line, and
@@ -249,10 +273,13 @@ version.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -336,6 +363,10 @@ FIG12_BITS = (32, 8, 6, 4)
 FIG12_ACTS = ("sigmoid", "threshold")
 TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--steps", "6", "--global-batch", "8",
               "--seq-len", "128", "--ckpt-every", "3"]
+# the training legs of phases 12 and 14 run the published configs at a
+# smaller depth, widths untouched, so that the smoke with phase 17 stays
+# inside its 1,200 s (at full depth it ran past 1,250 s on the H100)
+TRAIN_LAYERS = 12       # of qwen1.5-0.5B's 24
 TRAIN_RESUME_AT = 3     # the interrupted leg stops after its step-3 save
 TRAIN_TOL = 1e-6        # resumed vs straight: the reference's own bound
 TRAIN_PROFILED = 2      # train steps profiled for busy time and kernels
@@ -372,8 +403,10 @@ STATE_CACHE = 128
 HYBRID_TRAIN_ARGS = ["--arch", "zamba2-1.2b", "--steps", "2",
                      "--global-batch", "8", "--seq-len", "512",
                      "--ckpt-every", "0"]   # a checkpoint would be ~14 GB
+HYBRID_TRAIN_LAYERS = 12    # of zamba2-1.2b's 38: two shared-block calls
 SSM_TRAIN_ARGS = ["--arch", "xlstm-350m", "--steps", "4", "--global-batch",
                   "8", "--seq-len", "512", "--ckpt-every", "2"]
+SSM_TRAIN_LAYERS = 8    # of xlstm-350m's 24: one group, 7 mLSTM + 1 sLSTM
 SSM_RESUME_AT = 2       # the interrupted leg stops after its step-2 save
 PAR_RANKS = 2           # phase 15: ranks sharing the one card
 PAR_SPEC = {"arch": "qwen1.5-0.5b", "reduced": False, "global_batch": 8,
@@ -396,6 +429,27 @@ LAUNCH_SWEEP_TIMEOUT_S = 900.0   # (b): one dry-run process's deadline
 PIPE_TOL = 1e-5         # (c): the pipeline vs one process (forward, step)
 PIPE_SEED = 16
 PIPE_TIMEOUT_S = 600.0
+SHARD_RANKS = 4         # phase 17: ranks sharing the card
+SHARD_MODEL = 2         # make_debug_mesh(model=2): {'data': 2, 'model': 2}
+SHARD_SPEC = {"arch": "qwen1.5-0.5b", "reduced": False, "prompts": 4,
+              "prompt_len": 128, "new_tokens": 16, "cache_len": 256,
+              "global_batch": 8, "seq_len": 128, "steps": 3,
+              "ckpt_every": 2,
+              "launcher_args": ["--arch", "qwen1.5-0.5b", "--steps", "3",
+                                "--global-batch", "8", "--seq-len", "128"],
+              "families": ["moonshot-v1-16b-a3b", "zamba2-1.2b",
+                           "xlstm-350m"],
+              "family_seq_len": 16, "family_new_tokens": 4,
+              "family_cache_len": 32}
+SHARD_TOL = 1e-5        # f32 logits, losses and the parameter tree
+# (c) runs the launcher at the config's bf16, where the (2, 2) and (4, 1)
+# meshes round their partial products apart: PAR_BF16_TOL, phase 15's
+# bound for bf16 losses
+SHARD_LAUNCHER_TOL = PAR_BF16_TOL
+SHARD_TIMEOUT_S = 900.0
+# the two-axis placements of phase 17(b) (tests/test_torch_sharding.py's)
+SHARD_PLACEMENTS = {"['stack']['attn']['wq']": "(Shard(dim=1), Shard(dim=2))",
+                    "['stack']['mlp']['w2']": "(Shard(dim=2), Shard(dim=1))"}
 
 
 class SmokeFailure(Exception):
@@ -2579,6 +2633,21 @@ def _train_legs(torch, launch_train, train_loop, args, root,
     return straight, resumed, peak, recs, recs_b, dir_b, kit
 
 
+@contextlib.contextmanager
+def _launcher_depth(layers):
+    """Inside, ``repro_torch.launch.train`` builds a published config
+    (``configs.get_config``) at ``layers`` layers, its widths untouched;
+    the reduced configs stay as they are."""
+    from repro_torch import configs
+
+    real = configs.get_config
+    configs.get_config = lambda arch: real(arch).replace(num_layers=layers)
+    try:
+        yield
+    finally:
+        configs.get_config = real
+
+
 def _timed_ckpt_io(torch, ckpt_lib, io):
     """``ckpt_lib.save`` and ``restore`` wrapped to append each
     publishing save's and each restore's seconds and bytes to ``io``."""
@@ -2641,7 +2710,8 @@ def _resumed_legs(torch, launch_train, train_loop, args, root, tol,
 def phase_train(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
                 card, train_args=None):
     """Ex-situ training: (a)–(b) ``phase_train_qat``; (c) the full-width
-    qwen1.5-0.5B trained through ``repro_torch.launch.train`` (6 steps,
+    qwen1.5-0.5B at ``TRAIN_LAYERS`` of its 24 layers trained through
+    ``repro_torch.launch.train`` (6 steps,
     AdamW, bf16 compute, remat "full", checkpoints every 3 steps), the
     same job interrupted after step 3 and resumed, equal to the straight
     run at rel ≤ 1e-6, each step's loss and wall, two steps' busy time
@@ -2672,9 +2742,10 @@ def phase_train(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
     ckpt_lib.save, ckpt_lib.restore = _timed_ckpt_io(torch, ckpt_lib, io)
     try:
         t0 = time.perf_counter()
-        (straight, resumed, peak, recs, recs_b, dir_b, kit, rel, equal,
-         deterministic) = _resumed_legs(torch, launch_train, train_loop,
-                                        args, root, TRAIN_TOL)
+        with _launcher_depth(TRAIN_LAYERS):
+            (straight, resumed, peak, recs, recs_b, dir_b, kit, rel, equal,
+             deterministic) = _resumed_legs(torch, launch_train, train_loop,
+                                            args, root, TRAIN_TOL)
         legs_s = time.perf_counter() - t0
         _require(resumed["resumed_from"] == TRAIN_RESUME_AT,
                  f"resumed from {resumed['resumed_from']}")
@@ -3506,8 +3577,9 @@ def phase_state_train(torch, dev, card, hybrid_args=None, ssm_args=None,
                       resume_at=SSM_RESUME_AT):
     """(d) both models trained at their published widths through
     ``repro_torch.launch.train`` (the configs' bf16 compute, remat,
-    grad_accum; AdamW): zamba2 with no checkpoint, xlstm checkpointed
-    every 2 steps in a temporary directory, stopped after its
+    grad_accum; AdamW) at ``HYBRID_/SSM_TRAIN_LAYERS`` of their 38 and
+    24 layers: zamba2 with no checkpoint, xlstm checkpointed every 2
+    steps in a temporary directory, stopped after its
     step-``resume_at`` checkpoint and resumed, equal to the straight run
     to the bit (with deterministic algorithms only if it is not). Each
     step's loss and wall, one more step's busy time and kernels, peak
@@ -3550,7 +3622,8 @@ def phase_state_train(torch, dev, card, hybrid_args=None, ssm_args=None,
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run = launch_train.setup(launch_train.parse_args(args))
+        with _launcher_depth(HYBRID_TRAIN_LAYERS):
+            run = launch_train.setup(launch_train.parse_args(args))
         res = train_loop.run(run["loop"], train_step=run["train_step"],
                              params=run["params"],
                              opt_state=run["opt_state"],
@@ -3578,10 +3651,11 @@ def phase_state_train(torch, dev, card, hybrid_args=None, ssm_args=None,
         t0 = time.perf_counter()
         os.makedirs(os.path.join(root, "ssm"))
         try:
-            (straight, resumed, peak, recs, recs_b, _, kit, rel, equal,
-             deterministic) = _resumed_legs(
-                torch, launch_train, train_loop, args,
-                os.path.join(root, "ssm"), 0.0, resume_at)
+            with _launcher_depth(SSM_TRAIN_LAYERS):
+                (straight, resumed, peak, recs, recs_b, _, kit, rel, equal,
+                 deterministic) = _resumed_legs(
+                    torch, launch_train, train_loop, args,
+                    os.path.join(root, "ssm"), 0.0, resume_at)
         finally:
             ckpt_lib.save, ckpt_lib.restore = real
         _require(resumed["resumed_from"] == resume_at and equal,
@@ -3933,7 +4007,8 @@ def phase_parallel(torch, ops, dev, card, spec=None):
     parallelism with replicated parameters — the form the first card
     call decided (gloo's functional collectives, which DTensor issues,
     crash on CUDA tensors; its ``all_reduce`` and
-    ``all_gather_into_tensor`` work) — and each rank's f32 losses and
+    ``all_gather_into_tensor`` work; phase 17 runs the DTensor form
+    over the staged group) — and each rank's f32 losses and
     final parameters are held to the one process's at PAR_TOL, its
     bf16 losses at PAR_BF16_TOL; (b) ``compressed_psum`` at qwen's full
     gradient tree between the ranks, with different seeded gradients
@@ -4714,11 +4789,593 @@ def phase_launch_tools(torch, ops, dev, card, spec=None):
     return path
 
 
+# --------------------------------------------------------------------- #
+# phase 17: sharded (FSDP × TP) serving and training on ranks of the card
+# --------------------------------------------------------------------- #
+def _shard_config(arch, reduced):
+    """``arch``'s config (reduced or published) with f32 compute, as
+    phases 15 and 16 hold their parity runs."""
+    from repro_torch.configs import get_config, get_reduced
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    return cfg.replace(compute_dtype="float32")
+
+
+def _whole(t):
+    """A DTensor's whole value on every rank (a collective); a plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _grow_cache(torch, cache, axes, cache_len):
+    """A prefill's cache with every ring leaf zero-padded along its ring
+    axis to ``cache_len`` slots; the decode masks the empty slots by
+    position, as it does the slots the serving engine's lane writes
+    leave (``serving.kvcache.write_slot``). State leaves stay as they
+    are."""
+    if isinstance(cache, dict):
+        return {k: _grow_cache(torch, v, axes[k] if isinstance(axes, dict)
+                               else axes, cache_len)
+                for k, v in cache.items()}
+    _, ring = axes
+    if ring is None or cache.shape[ring] >= cache_len:
+        return cache
+    pad = [0, 0] * (cache.dim() - 1 - ring) + \
+        [0, cache_len - cache.shape[ring]]
+    return torch.nn.functional.pad(cache, pad)
+
+
+def _shard_serve(torch, cfg, params, prompts, new_tokens, cache_len,
+                 mesh=None, sync=lambda: None):
+    """Greedy serving of ``prompts`` (B, S) through the port's steps:
+    ``make_prefill_step`` under the prefill rules, its cache gathered
+    and grown to ``cache_len`` slots (:func:`_grow_cache`), then
+    ``new_tokens`` ``make_decode_step`` calls under the decode rules
+    with the cache placed by ``specs.cache_shardings`` (its sequence on
+    ``model``). ``params`` are placed by the caller (the decode rules'
+    placements under a mesh: weights resident). Returns each step's
+    whole logits (B, padded_vocab) on the device (the prefill's first),
+    each step's greedy tokens (B,) over the model's vocab, the
+    prefill's and each decode step's wall, and whether the cache keeps
+    a state in bf16 (xLSTM's mLSTM ``C``, as the reference keeps it)."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import axis_rules, tree_distribute
+    from repro_torch.train import steps as steps_lib
+
+    B, S = prompts.shape
+
+    def rules(mode):
+        return {} if mesh is None else \
+            make_rules(cfg, mesh, mode, global_batch=B)
+
+    def pick(logits):
+        return logits[:, :cfg.vocab_size].argmax(-1)
+
+    sync()
+    t0 = time.perf_counter()
+    with axis_rules(mesh, rules("prefill")):
+        logits, cache = steps_lib.make_prefill_step(cfg)(
+            params, {"tokens": prompts})
+        logits = _whole(logits)
+        cache = tree_map(_whole, cache)
+    cache = _grow_cache(torch, cache, model_lib.cache_axes(cfg), cache_len)
+    sync()
+    info = {"prefill_s": time.perf_counter() - t0, "decode_step_s": [],
+            "bf16_state": any(x.dtype == torch.bfloat16
+                              for x in leaves(cache))}
+    out, tokens = [logits], [pick(logits)]
+    decode = steps_lib.make_decode_step(cfg)
+    with axis_rules(mesh, rules("decode")):
+        if mesh is not None:
+            cache = tree_distribute(
+                cache, specs_lib.cache_shardings(cfg, mesh), mesh)
+        for i in range(new_tokens):
+            t0 = time.perf_counter()
+            logits, cache = decode(
+                params, cache, tokens[-1][:, None].to(torch.int32),
+                torch.tensor(S + i, dtype=torch.int32,
+                             device=prompts.device))
+            logits = _whole(logits)
+            sync()
+            info["decode_step_s"].append(time.perf_counter() - t0)
+            out.append(logits)
+            tokens.append(pick(logits))
+    return out, tokens, info
+
+
+def _place(cfg, tree, mesh, mode, global_batch, opt_state=None):
+    """``tree`` (and, given, its AdamW state) distributed by ``mode``'s
+    rule table on ``mesh`` (every rank holds them whole and keeps its
+    shards); as they are without a mesh."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.sharding import axis_rules, tree_distribute
+
+    if mesh is None:
+        return tree if opt_state is None else (tree, opt_state)
+    with axis_rules(mesh, make_rules(cfg, mesh, mode,
+                                     global_batch=global_batch)):
+        psh = specs_lib.param_shardings(cfg, mesh)
+        if opt_state is None:
+            return tree_distribute(tree, psh, mesh)
+        return tree_distribute((tree, opt_state),
+                               (psh, specs_lib.opt_shardings(psh, mesh)),
+                               mesh)
+
+
+def _shard_train(torch, cfg, params, pipe, steps, global_batch, mesh=None,
+                 sync=lambda: None, opt=None):
+    """``steps`` train steps of ``cfg`` from ``params`` (every rank's
+    whole tree) on ``pipe``'s batches with ``opt`` (default phase 15's
+    AdamW: eps 1e-4, cosine lr): under a mesh the parameters and the AdamW state placed
+    by the train rules and ``make_train_step`` run under them (FSDP ×
+    TP; the gradients reduce-scattered onto the shards). Returns the
+    final (params, state), and per step its loss, wall, and the staged
+    bytes and seconds of the group's collectives in it."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.sharding import axis_rules
+    from repro_torch.train import steps as steps_lib
+
+    opt = opt or _par_optimizer(steps)
+    params, state = _place(cfg, params, mesh, "train", global_batch,
+                           opt.init(params))
+    rules = {} if mesh is None else \
+        make_rules(cfg, mesh, "train", global_batch=global_batch)
+    rows = []
+    with axis_rules(mesh, rules):
+        step, accum = steps_lib.make_train_step(
+            cfg, opt, global_batch=global_batch,
+            dp=1 if mesh is None else mesh_lib.dp_degree(mesh))
+        for i in range(steps):
+            sync()
+            b0, s0 = mesh_lib.staged_bytes(), mesh_lib.staged_seconds()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, pipe.batch(i))
+            loss = float(m["loss"])
+            sync()
+            rows.append({"loss": loss, "wall_s": time.perf_counter() - t0,
+                         "staged_bytes": mesh_lib.staged_bytes() - b0,
+                         "staged_s": mesh_lib.staged_seconds() - s0})
+    return params, state, rows, accum
+
+
+def _shard_prompts(torch, cfg, spec, dev):
+    """The serving prompts: ``TokenPipeline(seed=0)``'s first batch of
+    ``prompts`` rows × ``prompt_len`` tokens, on ``dev``."""
+    from repro_torch.data.pipeline import TokenPipeline
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size,
+                         seq_len=spec["prompt_len"],
+                         global_batch=spec["prompts"], seed=0)
+    return torch.as_tensor(pipe.batch(0)["tokens"]).to(dev)
+
+
+def _top2_gap(torch, logits, vocab):
+    """Per lane, the gap between the two largest logits over the vocab,
+    over the largest |logit| of the lane."""
+    top = logits[:, :vocab].double().topk(2, dim=-1).values
+    big = logits[:, :vocab].double().abs().amax(-1).clamp(min=1e-30)
+    return ((top[:, 0] - top[:, 1]) / big).tolist()
+
+
+def _shard_reference(torch, spec, dev, ref_dir):
+    """One process's run of phase 17's (a) and (b) on ``dev``: the
+    serving job (each step's logits written under ``ref_dir`` as
+    ``logits{i}.npy``), its tokens and top-2 gaps; then the training
+    job, its losses and walls and its final parameters written as
+    ``params/{i}.npy``."""
+    import numpy as np
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import flatten_with_path
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    cfg = _shard_config(spec["arch"], spec["reduced"])
+    params = model_lib.init_params(cfg, 0, device=dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        logits, tokens, serve_info = _shard_serve(
+            torch, cfg, params, _shard_prompts(torch, cfg, spec, dev),
+            spec["new_tokens"], spec["cache_len"], sync=sync)
+    gaps = []
+    for i, lg in enumerate(logits):
+        np.save(os.path.join(ref_dir, f"logits{i}.npy"), lg.cpu().numpy())
+        gaps.append(_top2_gap(torch, lg, cfg.vocab_size))
+    one = {"tokens": [t.tolist() for t in tokens], "top2_gap": gaps,
+           "serve": serve_info}
+    del logits
+    new, state, rows, accum = _shard_train(
+        torch, cfg, params, _par_pipeline(cfg, spec), spec["steps"],
+        spec["global_batch"], sync=sync)
+    os.makedirs(os.path.join(ref_dir, "params"))
+    for i, (_, leaf) in enumerate(flatten_with_path(new)):
+        np.save(os.path.join(ref_dir, "params", f"{i}.npy"),
+                leaf.detach().cpu().numpy())
+    one.update(train=rows, accum=accum, peak_cuda_bytes=torch.cuda.
+               max_memory_allocated(dev) if on_card else None)
+    del params, new, state
+    if on_card:
+        torch.cuda.empty_cache()
+    return one
+
+
+def _shard_serve_leg(torch, cfg, spec, mesh, dev, sync):
+    """(a) on this rank: the full-width model placed by the decode rules
+    (weights resident), the serving job sharded, each step's logits
+    against the one process's (``rel``) and its tokens, walls and
+    staged bytes."""
+    import numpy as np
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+
+    whole = model_lib.init_params(cfg, 0, device=dev)
+    params = _place(cfg, whole, mesh, "decode", spec["prompts"])
+    del whole
+    b0, s0 = mesh_lib.staged_bytes(), mesh_lib.staged_seconds()
+    with torch.no_grad():
+        logits, tokens, info = _shard_serve(
+            torch, cfg, params, _shard_prompts(torch, cfg, spec, dev),
+            spec["new_tokens"], spec["cache_len"], mesh=mesh, sync=sync)
+    rel = [_rel(lg, torch.from_numpy(np.load(os.path.join(
+        spec["ref_dir"], f"logits{i}.npy"))).to(dev))
+        for i, lg in enumerate(logits)]
+    del params, logits
+    return {"rel": rel, "tokens": [t.tolist() for t in tokens], **info,
+            "staged_bytes": mesh_lib.staged_bytes() - b0,
+            "staged_s": mesh_lib.staged_seconds() - s0}
+
+
+def _shard_train_leg(torch, cfg, spec, mesh, dev, sync):
+    """(b) on this rank: the training job sharded (FSDP × TP), its
+    losses, walls and staged bytes, the placements of two weights, and
+    the final parameters over the whole tree against the one
+    process's."""
+    import numpy as np
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.pytree import flatten_with_path
+
+    whole = model_lib.init_params(cfg, 0, device=dev)
+    params, state, rows, accum = _shard_train(
+        torch, cfg, whole, _par_pipeline(cfg, spec), spec["steps"],
+        spec["global_batch"], mesh=mesh, sync=sync)
+    del whole, state
+    flat = flatten_with_path(params)
+    placements = {k: str(x.placements) for k, x in flat
+                  if k in SHARD_PLACEMENTS}
+    diff, big = 0.0, 0.0
+    for i, (_, leaf) in enumerate(flat):
+        want = torch.from_numpy(np.load(os.path.join(
+            spec["ref_dir"], "params", f"{i}.npy"))).to(dev)
+        got = _whole(leaf)
+        diff = max(diff, float((got.double() - want.double()).abs().max()))
+        big = max(big, float(want.abs().max()))
+        del want, got
+    return {"steps": rows, "accum": accum, "params_rel": diff / big,
+            "placements": placements}
+
+
+def _shard_family_leg(torch, arch, spec, mesh, dev, sync):
+    """(d) on this rank: ``arch``'s reduced config, one process's train
+    step (AdamW at a constant lr 1e-3, eps 1e-4, as
+    ``tests/test_torch_sharding.py``'s) and greedy decode computed here,
+    then the same sharded; the loss and the parameters over the tree,
+    the logits and the tokens against the one process's."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.rules import kv_repeat_for
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adamw import AdamW, constant_schedule
+    from repro_torch.pytree import leaves
+
+    base = _shard_config(arch, True)
+    cfg = base.replace(kv_repeat=kv_repeat_for(base,
+                                               mesh_lib.tp_degree(mesh)))
+    p0 = model_lib.init_params(base, 0, device=dev)
+    pipe = TokenPipeline(vocab_size=base.vocab_size,
+                         seq_len=spec["family_seq_len"],
+                         global_batch=spec["global_batch"], seed=4)
+    prompts = torch.as_tensor(pipe.batch(0)["tokens"][
+        :spec["prompts"]]).to(dev)
+    t0 = time.perf_counter()
+    opt = AdamW(lr=constant_schedule(1e-3), eps=PAR_EPS)
+    one_p, _, one_rows, _ = _shard_train(torch, base, p0, pipe, 1,
+                                         spec["global_batch"], sync=sync,
+                                         opt=opt)
+    with torch.no_grad():
+        one_logits, one_tokens, one_info = _shard_serve(
+            torch, base, p0, prompts, spec["family_new_tokens"],
+            spec["family_cache_len"], sync=sync)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_p, _, rows, _ = _shard_train(torch, cfg, p0, pipe, 1,
+                                     spec["global_batch"], mesh=mesh,
+                                     sync=sync, opt=opt)
+    diff = max(float((_whole(a) - b).abs().max())
+               for a, b in zip(leaves(got_p), leaves(one_p)))
+    big = max(float(b.abs().max()) for b in leaves(one_p))
+    with torch.no_grad():
+        logits, tokens, _ = _shard_serve(
+            torch, cfg, _place(cfg, p0, mesh, "decode", spec["prompts"]),
+            prompts, spec["family_new_tokens"], spec["family_cache_len"],
+            mesh=mesh, sync=sync)
+    return {"arch": arch, "family": base.family,
+            "loss": rows[0]["loss"], "one_loss": one_rows[0]["loss"],
+            "params_rel": diff / big,
+            "logits_rel": [_rel(a, b) for a, b in zip(logits, one_logits)],
+            "bf16_state": one_info["bf16_state"],
+            "tokens_equal": all(bool(torch.equal(a, b))
+                                for a, b in zip(tokens, one_tokens)),
+            "one_gap_min": min(min(_top2_gap(torch, lg, base.vocab_size))
+                               for lg in one_logits),
+            "one_process_s": one_s, "sharded_s": time.perf_counter() - t0}
+
+
+def _shard_worker(spec) -> int:
+    """One rank of phase 17, started by ``launch_local_fleet``: joins the
+    group the port chooses for ranks sharing the card (the staged
+    backend), builds the (data, model) mesh, runs (a), (b) and (d), and
+    prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_lib.rank_device(spec["device"])
+    rank = mesh_lib.init_fleet_group(
+        PAR_GROUP_TIMEOUT_S,
+        backend=spec.get("backend") or mesh_lib.group_backend(dev))
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    mesh = mesh_lib.make_debug_mesh(model=SHARD_MODEL, device=dev)
+    cfg = _shard_config(spec["arch"], spec["reduced"])
+    out = {"rank": rank, "device": str(dev),
+           "backend": str(dist.get_backend()),
+           "mesh": mesh_lib.mesh_axis_sizes(mesh)}
+    out["serve"] = _shard_serve_leg(torch, cfg, spec, mesh, dev, sync)
+    out["train"] = _shard_train_leg(torch, cfg, spec, mesh, dev, sync)
+    out["families"] = [_shard_family_leg(torch, arch, spec, mesh, dev,
+                                         sync)
+                       for arch in spec["families"]]
+    out["peak_cuda_bytes"] = torch.cuda.max_memory_allocated(dev) \
+        if on_card else None
+    out["staged_bytes"] = mesh_lib.staged_bytes()
+    print(json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _decode_tol(bf16_state):
+    """The decode steps' logits tolerance: SHARD_TOL, or PAR_BF16_TOL
+    where the cache keeps a state in bf16. There a reduction-order
+    difference of 1e-7 moves a state entry across a bf16 rounding
+    boundary: one process's own decode of the reduced xLSTM moves by
+    up to 1.35e-4 of its largest logit in 4 steps when its weights
+    move by 1e-7, its prefill by 7.8e-7 (on the CPU;
+    ``tests/test_torch_staged_group.py`` pins it)."""
+    return PAR_BF16_TOL if bf16_state else SHARD_TOL
+
+
+def _check_serving(one, w, tol):
+    """(a)'s gate on one rank: the tokens equal the one process's up to
+    the first step where they differ, which must be one where the one
+    process's top-2 gap is under ``tol`` of its largest |logit| (phase
+    11's rule); every step's logits up to and including that step
+    within ``tol``. Returns the first differing step (None: none)."""
+    first = None
+    for i, (a, b) in enumerate(zip(w["serve"]["tokens"], one["tokens"])):
+        if a != b:
+            first = i
+            lanes = [j for j, (x, y) in enumerate(zip(a, b)) if x != y]
+            _require(all(one["top2_gap"][i][j] < tol for j in lanes),
+                     f"phase 17(a): rank {w['rank']} step {i} tokens {a} "
+                     f"vs {b}, one process's gaps {one['top2_gap'][i]}")
+            break
+    last = len(one["tokens"]) if first is None else first + 1
+    rel = w["serve"]["rel"]
+    step_tol = _decode_tol(one["serve"]["bf16_state"])
+    _require(rel[0] <= tol and max(rel[1:last], default=0.0) <= step_tol,
+             f"phase 17(a): rank {w['rank']} logits rel {rel}")
+    return first
+
+
+def _shard_launcher(spec, dev, root):
+    """(c): the launcher on SHARD_RANKS ranks with ``--model-parallel
+    2``, then resumed from a copy of its step-2 checkpoint with
+    ``--model-parallel 1`` (a (4, 1) mesh), both at the config's bf16
+    compute; the resumed step-2 loss against the straight run's at
+    SHARD_LAUNCHER_TOL."""
+    import shutil
+
+    from repro_torch.launch import simdev
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    device = [] if dev.type == "cuda" else ["--device", str(dev)]
+    base = [sys.executable, "-m", "repro_torch.launch.train",
+            *spec["launcher_args"], *device, "--log-every", "1"]
+
+    def run(mp, ckpt, log, every):
+        t0 = time.perf_counter()
+        res = simdev.launch_local_fleet(
+            base + ["--model-parallel", str(mp), "--ckpt-dir", ckpt,
+                    "--log", log, "--ckpt-every", str(every)],
+            SHARD_RANKS, timeout=SHARD_TIMEOUT_S)
+        for r in res:
+            _require(r.returncode == 0, f"phase 17(c): launcher rank "
+                                        f"{r.rank}: {r.stderr_tail}")
+        with open(log) as f:
+            recs = [json.loads(line) for line in f]
+        return res, recs, time.perf_counter() - t0
+
+    straight, resumed = os.path.join(root, "straight"), \
+        os.path.join(root, "resumed")
+    res_a, recs_a, wall_a = run(SHARD_MODEL, straight, straight + ".jsonl",
+                                spec["ckpt_every"])
+    name = _shard_config(spec["arch"], spec["reduced"]).name
+    want = f"mesh: {{'data': 2, 'model': 2}} (dp=2, tp=2); arch={name}"
+    for r in res_a:
+        _require(want in r.stdout, f"phase 17(c): rank {r.rank} printed "
+                                   f"{r.stdout[-500:]}")
+    at = spec["ckpt_every"]
+    _require(at in ckpt_lib.published_steps(straight),
+             f"phase 17(c): steps published "
+             f"{ckpt_lib.published_steps(straight)}")
+    src = os.path.join(straight, f"step_{at:08d}")
+    size = sum(os.path.getsize(os.path.join(src, n))
+               for n in os.listdir(src))
+    os.makedirs(resumed)
+    shutil.copytree(src, os.path.join(resumed, f"step_{at:08d}"))
+    shutil.rmtree(straight, ignore_errors=True)
+    res_b, recs_b, wall_b = run(1, resumed, resumed + ".jsonl", 0)
+    for r in res_b:
+        _require(f"resumed_from={at}" in r.stdout and
+                 "mesh: {'data': 4, 'model': 1} (dp=4, tp=1)" in r.stdout,
+                 f"phase 17(c): resumed rank {r.rank} printed "
+                 f"{r.stdout[-500:]}")
+    # every rank's save walls (the gather on every rank; rank 0 writes)
+    saves = [[(int(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"\[checkpoint\] step (\d+) saved in ([0-9.]+)s", r.stdout)]
+        for r in res_a]
+    _require(all(at in dict(s) for s in saves),
+             f"phase 17(c): checkpoint walls {saves}")
+    loss_a = [x["loss"] for x in recs_a if x["step"] == at][0]
+    loss_b = [x["loss"] for x in recs_b if x["step"] == at][0]
+    rel = abs(loss_b - loss_a) / abs(loss_a)
+    _require(rel <= SHARD_LAUNCHER_TOL, f"phase 17(c): resumed step-{at} "
+                                        f"loss {loss_b} vs {loss_a}")
+    return {"straight": {"steps": recs_a, "seconds": wall_a,
+                         "stdout_tail": res_a[0].stdout[-300:]},
+            "resumed": {"steps": recs_b, "seconds": wall_b,
+                        "stdout_tail": res_b[0].stdout[-300:]},
+            "checkpoint_bytes": size, "checkpoint_save_s": saves,
+            "resume_loss_rel": rel}
+
+
+def phase_sharded(torch, ops, dev, card, spec=None):
+    """Phase 17: sharded (FSDP × TP) serving and training on SHARD_RANKS
+    ranks sharing the card, one ``launch_local_fleet`` group (the staged
+    backend: each collective's tensors through pinned host buffers and
+    gloo), ``make_debug_mesh(model=2)`` = {'data': 2, 'model': 2}, f32
+    without TF32. One process's run of the same jobs on the card first,
+    its results kept under a temporary directory. (a) qwen1.5-0.5B at
+    full width, weights resident per the decode rules: a prefill of 4
+    × 128 tokens, then 16 greedy decode steps into a cache of 256 with
+    its sequence on ``model``; every step's logits within SHARD_TOL of
+    one process's, the tokens equal up to the first step where one
+    process's top-2 gap is under SHARD_TOL of its largest |logit|;
+    (b) 3 train steps of global batch 8 × 128 (2 microbatches) on
+    ``TokenPipeline(seed=0)``, AdamW eps 1e-4, cosine lr 3e-4, placed
+    by the train rules: losses within SHARD_TOL, the final parameters
+    within SHARD_TOL over the tree, ``wq`` and ``w2`` on both axes; (c)
+    the launcher itself on the ranks with ``--model-parallel 2`` and a
+    step-2 checkpoint at the config's bf16 compute, then resumed from a
+    copy of it on a (4, 1) mesh, the step-2 losses within
+    SHARD_LAUNCHER_TOL; (d) the reduced MoE, hybrid and
+    ssm configs: a train step and a 4-token decode each against one
+    process's. Per rank: step walls, staged bytes and seconds, peak
+    memory. ``spec`` overrides SHARD_SPEC (the CPU rehearsal passes a
+    reduced one). Returns the phase's kernel launches (none: the
+    sharded steps are plain products and collectives)."""
+    import shutil
+
+    from repro_torch.launch import simdev
+
+    spec = dict(SHARD_SPEC, **(spec or {}))
+    spec["device"] = None if dev.type == "cuda" else str(dev)
+    t_phase = time.perf_counter()
+    before = ops.launch_counts()
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        spec["ref_dir"] = os.path.join(root, "ref")
+        os.makedirs(spec["ref_dir"])
+        t0 = time.perf_counter()
+        one = _shard_reference(torch, spec, dev, spec["ref_dir"])
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = simdev.launch_local_fleet(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--shard-worker", json.dumps(spec)], SHARD_RANKS,
+            timeout=SHARD_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        workers = []
+        for r in res:
+            _require(r.returncode == 0, f"phase 17: rank {r.rank}: "
+                                        f"{r.stderr_tail}")
+            workers.append(simdev.last_json_line(r.stdout))
+        for w in workers:
+            _require(w["mesh"] == {"data": 2, "model": 2},
+                     f"phase 17: rank {w['rank']} mesh {w['mesh']}")
+            w["serve"]["first_token_difference"] = _check_serving(
+                one, w, SHARD_TOL)
+            t = w["train"]
+            t["loss_rel"] = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                             for a, b in zip(t["steps"], one["train"])]
+            _require(max(t["loss_rel"]) <= SHARD_TOL and
+                     t["params_rel"] <= SHARD_TOL and
+                     t["accum"] == one["accum"],
+                     f"phase 17(b): rank {w['rank']} losses "
+                     f"{t['steps']} vs {one['train']}, params rel "
+                     f"{t['params_rel']:.3g}")
+            _require(t["placements"] == SHARD_PLACEMENTS,
+                     f"phase 17(b): placements {t['placements']}")
+            for f in w["families"]:
+                f["loss_rel"] = abs(f["loss"] - f["one_loss"]) / \
+                    abs(f["one_loss"])
+                step_tol = _decode_tol(f["bf16_state"])
+                _require(f["loss_rel"] <= SHARD_TOL and
+                         f["params_rel"] <= SHARD_TOL and
+                         f["logits_rel"][0] <= SHARD_TOL and
+                         max(f["logits_rel"][1:]) <= step_tol and
+                         (f["tokens_equal"] or f["one_gap_min"] <
+                          SHARD_TOL),
+                         f"phase 17(d): rank {w['rank']} {f}")
+        _line({"phase": "sharded_ranks", "config": spec["arch"],
+               "reduced": spec["reduced"], "ranks": SHARD_RANKS,
+               "backend": workers[0]["backend"],
+               "mesh": workers[0]["mesh"], "tol": SHARD_TOL,
+               "one_process": one, "one_process_seconds": one_s,
+               "ranks_seconds": ranks_s, "workers": workers,
+               "card": card})
+        t0 = time.perf_counter()
+        launcher = _shard_launcher(spec, dev, root)
+        _line({"phase": "sharded_launcher", **launcher,
+               "seconds": time.perf_counter() - t0, "card": card})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    path = _deltas(ops.launch_counts(), before)
+    _line({"phase": "sharded", "launches": path,
+           "seconds": time.perf_counter() - t_phase, "card": card})
+    return path
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         return _parallel_worker(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--pipeline-worker"]:
         return _pipeline_worker(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--shard-worker"]:
+        return _shard_worker(json.loads(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -4736,6 +5393,7 @@ def main() -> int:
         from repro_torch.core import crossbar_layer as tcl
         from repro_torch.core import quantization as tq
         from repro_torch.kernels import build, ops, ref
+        from repro_torch.launch import mesh as mesh_lib
     except ImportError as exc:
         print(f"chip_smoke: the repository's src/repro_torch is not beside "
               f"this script ({exc})", file=sys.stderr)
@@ -4754,7 +5412,11 @@ def main() -> int:
     card = smi
     try:
         t0 = time.perf_counter()
-        seconds = build.build()
+        # the ranks' staged backend (a host C++ build) beside the kernels
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            staged = pool.submit(mesh_lib.build_staged_backend)
+            seconds = build.build()
+            seconds["staged_backend"] = staged.result()
         _line({"phase": "build", "seconds": time.perf_counter() - t0,
                "per_kernel_s": seconds, "dir": str(build.BUILD_DIR)})
         phase_kernels(torch, ops, ref, dev)
@@ -4786,13 +5448,14 @@ def main() -> int:
         state_launches = phase_state_space(torch, ops, dev, card)
         parallel_launches = phase_parallel(torch, ops, dev, card)
         launch_launches = phase_launch_tools(torch, ops, dev, card)
+        sharded_launches = phase_sharded(torch, ops, dev, card)
         # each kernel's launches: the main path's and the later phases'
         for row in kernels:
             for later in (var_launches, app_launches, wide_launches,
                           fleet_launches, rank_launches, deploy_launches,
                           lm_launches, train_launches, family_launches,
                           state_launches, parallel_launches,
-                          launch_launches):
+                          launch_launches, sharded_launches):
                 row["launches"] += later[row["name"]]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

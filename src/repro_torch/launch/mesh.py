@@ -13,14 +13,33 @@ is not offered: a process drives the one device its rank names.
 
 Design decisions:
 
-1. **Gloo only, no NCCL.** What crosses ranks is the control plane —
-   the lockstep "anything left?" reduction and tiny stat gathers —
-   never request payloads or results, which stay on the rank (and the
-   device) that owns them. So the process group is gloo over CPU
-   tensors (:func:`allgather` refuses a CUDA tensor: gloo does not
-   gather them, and nothing here moves item rows between ranks).
-   Every rank of a one-card machine shares ``cuda:0``, where NCCL
-   between two ranks would not run in any case.
+1. **gloo for the host, a staged backend or NCCL for the card.** The
+   fleet's control plane — the lockstep "anything left?" reduction and
+   tiny stat gathers — crosses ranks as CPU tensors on gloo, never
+   request payloads or results, which stay on the rank (and the
+   device) that owns them (:func:`allgather` refuses a CUDA tensor).
+   The training substrate's collectives carry the card's tensors, and
+   who serves them depends on how many cards the ranks have
+   (:func:`group_backend`): with a card a rank, NCCL
+   (``"cpu:gloo,cuda:nccl"``); when ranks share a card, where NCCL
+   refuses two ranks on one device, the ``"staged"`` backend
+   (``"cpu:gloo,cuda:staged"``, ``csrc/staged_backend.cpp``). gloo
+   itself takes the card's tensors in the plain c10d collectives, but
+   its functional all-gather of a CUDA tensor — DTensor's first
+   redistribution — kills the process (torch 2.11). The staged backend
+   copies each collective's tensors to pinned host buffers, runs
+   gloo's own op on them, waits, and copies the results back, so a
+   collective has finished when its call returns. It counts the
+   bytes it copies and its seconds (:func:`staged_bytes`,
+   :func:`staged_seconds`), and an op it does not implement raises,
+   naming the op. It is C++ because a backend must be a
+   ``c10d::Backend``: the functional collectives reach a group's
+   backend from C++, never a Python ``ProcessGroup``'s methods. It is
+   built at first use (:func:`build_staged_backend`), not at import.
+   :func:`init_fleet_group` joins plain gloo unless asked otherwise:
+   only the callers that issue DTensor's collectives on the card (the
+   launcher across ranks, the sharded steps' ranks) pass
+   :func:`group_backend` of their device.
 2. **Rendezvous through a ``file://`` store** in a directory made fresh
    for each launch (:func:`repro_torch.launch.simdev.launch_local_fleet`),
    so no free TCP port is picked and raced for; the group's timeout is
@@ -33,8 +52,9 @@ The training substrate's meshes (:func:`make_production_mesh`,
 objects over the group's ranks, one rank per mesh position, with the
 reference's axis names (``pod``, ``data``, ``model``): the device type
 is this rank's (:func:`rank_device`: ``cpu`` when asked for, else the
-card). Their collectives ride the same gloo group (decision 1: a
-one-card machine cannot run NCCL between two ranks). The rule table
+card). Their collectives ride the group's backend for that device
+(decision 1), and so do their sub-groups, which inherit the group's
+backend string. The rule table
 reads only a mesh's axis names and sizes (:func:`mesh_axis_sizes`), so
 a :class:`MeshShape` stands in for a production mesh of 256 or 512
 positions where no such group exists.
@@ -43,18 +63,26 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
+import hashlib
+import importlib.util
 import math
 import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.build import BUILD_DIR
 from repro_torch.launch.simdev import STORE_ENV
 from repro_torch.runtime import DeviceLike, resolve_device
 
 
 # ------------------------------------------------------------------- #
-# the process group (gloo, control plane only)
+# the process group
 # ------------------------------------------------------------------- #
 def _grouped() -> bool:
     import torch.distributed as dist
@@ -73,21 +101,154 @@ def process_index() -> int:
     return dist.get_rank() if _grouped() else 0
 
 
-def init_fleet_group(timeout_s: float) -> int:
-    """Join this worker's gloo process group from the environment
+STAGED = "staged"
+STAGED_SOURCE = Path(__file__).resolve().parent / "csrc" / \
+    "staged_backend.cpp"
+_STAGED_MODULE = "repro_staged_backend"
+# every staged backend this process made (one a group and sub-group)
+_staged_backends: list = []
+
+
+def group_backend(device: DeviceLike = None) -> str:
+    """The backend string for ranks on ``device`` (decision 1): plain
+    gloo for CPU ranks; for ranks on the card (``None`` is the card),
+    NCCL when this host has a card for each of its ranks
+    (``LOCAL_WORLD_SIZE``, else ``WORLD_SIZE``), else the staged
+    backend."""
+    if torch.device("cuda" if device is None else device).type == "cpu":
+        return "gloo"
+    local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                               os.environ.get("WORLD_SIZE", "1")))
+    cuda = "nccl" if torch.cuda.device_count() >= local else STAGED
+    return f"cpu:gloo,cuda:{cuda}"
+
+
+def init_fleet_group(timeout_s: float, backend: str = "gloo") -> int:
+    """Join this worker's process group from the environment
     :func:`repro_torch.launch.simdev.launch_local_fleet` gives it
     (``RANK``, ``WORLD_SIZE`` and the ``file://`` store's path).
     ``timeout_s`` bounds the rendezvous and every collective: a peer
     that does not arrive within it fails the call instead of hanging
-    it. Returns this rank."""
+    it. ``backend``: a backend string, plain gloo (the fleet's control
+    plane) unless given: :func:`group_backend` for ranks whose DTensor
+    collectives carry the card's tensors, ``"cpu:staged"`` to run the
+    staged backend on CPU ranks. Returns this rank."""
     import torch.distributed as dist
 
+    if STAGED in backend:
+        register_staged_backend()
     rank = int(os.environ["RANK"])
     dist.init_process_group(
-        backend="gloo", init_method=f"file://{os.environ[STORE_ENV]}",
+        backend=backend, init_method=f"file://{os.environ[STORE_ENV]}",
         rank=rank, world_size=int(os.environ["WORLD_SIZE"]),
         timeout=datetime.timedelta(seconds=float(timeout_s)))
     return rank
+
+
+def cuda_backend(group=None) -> str:
+    """The name of the backend that serves CUDA tensors in ``group``
+    (the default group when None): ``"gloo"``, ``"nccl"``,
+    ``"staged"``."""
+    import torch.distributed as dist
+
+    name = str(dist.get_backend(group))
+    pairs = dict(p.split(":", 1) for p in name.split(",") if ":" in p)
+    return pairs.get("cuda", name)
+
+
+def _staged_command(out: Path) -> list:
+    import sysconfig
+
+    from torch.utils import cpp_extension
+
+    lib = cpp_extension.library_paths()[0]
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    return [os.environ.get("CXX", "c++"), "-O2", "-std=c++20", "-shared",
+            "-fPIC", f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+            f"-DTORCH_EXTENSION_NAME={_STAGED_MODULE}",
+            "-DTORCH_API_INCLUDE_EXTENSION_H",
+            *[f"-I{p}" for p in cpp_extension.include_paths()],
+            f"-I{sysconfig.get_paths()['include']}", str(STAGED_SOURCE),
+            "-o", str(out), f"-L{lib}", "-lc10", "-ltorch", "-ltorch_cpu",
+            "-ltorch_python", f"-Wl,-rpath,{lib}"]
+
+
+def staged_library_path() -> Path:
+    """Where the staged backend's module lives: keyed by its source,
+    the torch it is built against and the compile command."""
+    digest = hashlib.sha256(STAGED_SOURCE.read_bytes())
+    digest.update(f"{torch.__version__} {sys.version}".encode())
+    digest.update(" ".join(_staged_command(Path("out"))).encode())
+    return BUILD_DIR / f"{_STAGED_MODULE}-{digest.hexdigest()[:12]}.so"
+
+
+def build_staged_backend() -> float:
+    """Compile the staged backend with the host's C++ compiler against
+    this torch's headers, under ``build/repro_torch/``, unless it is
+    built. Returns the seconds the build took (0.0 when it was built);
+    raises with the compiler's output when it fails."""
+    target = staged_library_path()
+    if target.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(_staged_command(tmp), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"repro_torch: the staged backend's build "
+                           f"failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, target)
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_module():
+    import torch.distributed  # noqa: F401  (binds c10d's Backend type)
+
+    build_staged_backend()
+    spec = importlib.util.spec_from_file_location(_STAGED_MODULE,
+                                                  staged_library_path())
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _make_staged(store, rank: int, size: int, timeout):
+    import torch.distributed as dist
+
+    host = dist.ProcessGroupGloo(dist.PrefixStore("host/", store), rank,
+                                 size, timeout)
+    backend = _staged_module().StagedBackend(host, rank, size)
+    _staged_backends.append(backend)
+    return backend
+
+
+@functools.lru_cache(maxsize=None)
+def register_staged_backend() -> None:
+    """Make ``"staged"`` a backend name ``init_process_group`` and
+    ``new_group`` take (for ``cpu`` and ``cuda`` tensors), building it
+    first when it is not built. Once a process."""
+    import torch.distributed as dist
+
+    _staged_module()
+    dist.Backend.register_backend(STAGED, _make_staged,
+                                  devices=["cpu", "cuda"])
+
+
+def staged_bytes() -> int:
+    """Bytes the staged backends of this process have copied between
+    the card (or, on CPU ranks, the tensors' own memory) and host
+    buffers, both ways, since they were made."""
+    return sum(b.staged_bytes() for b in _staged_backends)
+
+
+def staged_seconds() -> float:
+    """Seconds on the host's clock that the staged backends of this
+    process have spent in their collectives (copies, gloo's op and its
+    wait), since they were made."""
+    return sum(b.staged_seconds() for b in _staged_backends)
 
 
 def allgather(t: torch.Tensor) -> torch.Tensor:

@@ -37,14 +37,17 @@ stage's cotangent is used, never the ranks' sum. ``x`` is replicated
 too: when it requires a gradient, stage 0 assembles d x over the
 microbatches and broadcasts it, so every rank holds the whole d x.
 
-Transport. On an NCCL group, and for CPU tensors, the activation is
-sent as it is. On a gloo group a CUDA activation crosses through a
-pinned host buffer: it is copied to the host, sent, received into a
-host buffer and copied to the receiver's device (the same for the
-broadcasts and the backward's sends). The route follows the group's
-backend and the tensor's device alone, and ``stats["staged_bytes"]``
-counts the bytes copied between device and host. (The card's run
-decided it: see ROADMAP, "Pipeline transport".)
+Transport. Where NCCL serves the group's CUDA tensors, and for CPU
+tensors, the activation is sent as it is. Where gloo or the staged
+backend serves them (``launch.mesh.cuda_backend``; neither sends a
+CUDA tensor point to point), a CUDA activation crosses through a
+pinned host buffer: it is copied to the host, sent over the group's
+gloo, received into a host buffer and copied to the receiver's device
+(the same for the broadcasts and the backward's sends). The route
+follows the backend serving CUDA tensors and the tensor's device
+alone, and ``stats["staged_bytes"]`` counts the bytes copied between
+device and host. (The card's run decided it: see ROADMAP, "Pipeline
+transport".)
 """
 from __future__ import annotations
 
@@ -69,19 +72,21 @@ def stage_index(axis: str = "pod", *, mesh=None) -> int:
 
 class _Link:
     """Point-to-point and broadcast on one group, through pinned host
-    buffers where a gloo group meets a CUDA tensor."""
+    buffers where the group's CUDA tensors are not NCCL's."""
 
     def __init__(self, group, stats: Dict):
         import torch.distributed as dist
 
+        from repro_torch.launch.mesh import cuda_backend
+
         self.dist = dist
         self.group = group
         self.ranks = dist.get_process_group_ranks(group)
-        self.gloo = dist.get_backend(group) == "gloo"
+        self.via_host = cuda_backend(group) != "nccl"
         self.stats = stats
 
     def _staged(self, t: torch.Tensor) -> bool:
-        return self.gloo and t.device.type == "cuda"
+        return self.via_host and t.device.type == "cuda"
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

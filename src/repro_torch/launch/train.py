@@ -6,7 +6,8 @@
 
 Port of ``repro.launch.train``: the reference's flags plus ``--device``
 (the card unless ``cpu`` is asked for) and ``--log-every`` (the loop's
-metrics cadence, 10 as the reference's). :func:`setup` builds the
+metrics cadence, 10 as the reference's). Each checkpoint save prints
+its seconds. :func:`setup` builds the
 model's seeded parameters on the device, AdamW with the reference's
 cosine schedule (warm-up ``steps // 20``) and the procedural token
 pipeline; :func:`main` runs them through the fault-tolerant train loop
@@ -15,20 +16,19 @@ takes the width-scaled config (``configs.get_reduced``).
 
 A process that is one rank of a group (``WORLD_SIZE`` > 1, as
 ``repro_torch.launch.simdev.launch_local_fleet`` starts it: every rank
-runs this launcher with the same flags) joins the gloo group and builds
-``make_debug_mesh(model=--model-parallel)`` over the ranks, sets
+runs this launcher with the same flags) joins the process group and
+builds ``make_debug_mesh(model=--model-parallel)`` over the ranks, sets
 ``kv_repeat`` for the mesh's TP degree, derives the rule table and
 places the parameters and AdamW state as DTensors; every rank runs the
 loop, and checkpoints are gathered on every rank and written by rank 0.
 It prints ``mesh: {...} (dp=…, tp=…)`` as the reference does. Every
-family's sharded step is held to one process's on CPU ranks
-(``SHARDED_FAMILIES``: the dense, vlm and audio stacks, and since
-ROADMAP item 9h the MoE, hybrid and xLSTM stacks). Ranks on the card
-are refused before they join the group (there the group is gloo, since
-one card cannot run NCCL between two ranks, and gloo's functional
-collectives — the ones DTensor issues — crash on CUDA tensors;
-replicated data parallelism on the card is
-``steps.make_dp_train_step``). One process has no mesh, and there
+family's sharded step is held to one process's (``SHARDED_FAMILIES``:
+the dense, vlm and audio stacks, and the MoE, hybrid and xLSTM
+stacks). Ranks on the CPU (``--device cpu``) join a gloo group; ranks
+on the card (the default) join the group ``launch.mesh.group_backend``
+chooses: the staged backend where they share a card (their
+collectives go through pinned host buffers), NCCL where each has a
+card of its own. One process has no mesh, and there
 ``--model-parallel`` above 1 raises, naming the ranks it would need.
 
 One deliberate difference: the pipeline draws tokens over the model's
@@ -90,8 +90,6 @@ def setup(args: argparse.Namespace) -> Dict[str, Any]:
             f"model) mesh of at least {args.model_parallel} ranks; this "
             f"process is not one rank of a group (start the ranks with "
             f"repro_torch.launch.simdev.launch_local_fleet)")
-    import torch
-
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import mesh as mesh_lib
@@ -105,11 +103,6 @@ def setup(args: argparse.Namespace) -> Dict[str, Any]:
         raise NotImplementedError(
             f"{args.arch} across ranks: the {cfg.family} family's sharded "
             f"step is not checked yet (ROADMAP item 9h)")
-    if ranks > 1 and torch.device(args.device or "cuda").type == "cuda":
-        raise NotImplementedError(
-            "ranks on the card: gloo's functional collectives crash on "
-            "CUDA tensors and NCCL needs a card a rank (ROADMAP decision "
-            "6b, item 9h); pass --device cpu")
     dev = mesh_lib.rank_device(args.device)
     opt = AdamW(lr=cosine_schedule(args.lr, max(args.steps // 20, 1),
                                    args.steps))
@@ -119,7 +112,8 @@ def setup(args: argparse.Namespace) -> Dict[str, Any]:
         from repro_torch.launch.rules import kv_repeat_for, make_rules
         from repro_torch.sharding import axis_rules, tree_distribute
 
-        mesh_lib.init_fleet_group(GROUP_TIMEOUT_S)
+        mesh_lib.init_fleet_group(GROUP_TIMEOUT_S,
+                                  backend=mesh_lib.group_backend(dev))
         mesh = mesh_lib.make_debug_mesh(model=args.model_parallel,
                                         device=dev)
         sizes = mesh_lib.mesh_axis_sizes(mesh)
@@ -178,7 +172,10 @@ def main(argv=None):
                   opt_state=s["opt_state"], pipeline=s["pipeline"],
                   placements=s["placements"], log_path=log,
                   on_straggler=lambda st, dt: print(
-                      f"[watchdog] step {st} straggled: {dt:.3f}s"))
+                      f"[watchdog] step {st} straggled: {dt:.3f}s"),
+                  on_checkpoint=lambda st, dt: print(
+                      f"[checkpoint] step {st} saved in {dt:.3f}s",
+                      flush=True))
     hist = out["metrics"]
     if hist:
         print(f"steps {hist[0]['step']}→{hist[-1]['step']}: "

@@ -59,7 +59,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (mlp_apply, mlp_init, mlp_specs,
                                        pdtype, rms_norm)
-from repro_torch.sharding import shard
+from repro_torch.sharding import carry_rules, shard
 
 # one generator per parameter leaf of a block, keyed by these codes; an
 # MoE block's MLP leaves take the codes after them (``moe.MOE_LEAVES``)
@@ -174,9 +174,13 @@ def _save_plain_matmuls(ctx, op, *args, **kwargs):
 
 
 def _remat(fn: Callable, cfg, mode: str) -> Callable:
-    """``fn(h) -> out`` rematerialised per ``cfg.remat`` in train mode."""
+    """``fn(h) -> out`` rematerialised per ``cfg.remat`` in train mode.
+    The recomputation sees the rule table of the forward
+    (``sharding.carry_rules``): on the card it runs on the autograd
+    engine's thread."""
     if mode != "train" or cfg.remat == "none":
         return fn
+    fn = carry_rules(fn)
     if cfg.remat == "dots":
         contexts = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                      _save_plain_matmuls)

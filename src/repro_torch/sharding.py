@@ -64,6 +64,25 @@ def current_mesh():
     return _st().mesh
 
 
+def carry_rules(fn):
+    """``fn`` wrapped so that each call, on whatever thread makes it,
+    runs under the mesh and rule table installed when ``carry_rules``
+    is called. The table is thread-local, and the autograd engine runs
+    a CUDA backward — a rematerialised block's recomputation with it —
+    on a thread of its own, where no table is installed (on the CPU the
+    backward runs on the caller's thread). Without a mesh: ``fn``."""
+    st = _st()
+    mesh, rules = st.mesh, st.rules
+    if mesh is None:
+        return fn
+
+    def call(*args, **kwargs):
+        with axis_rules(mesh, rules):
+            return fn(*args, **kwargs)
+
+    return call
+
+
 def spec_for(names: Sequence[Union[str, None]]) -> Tuple[Axis, ...]:
     st = _st()
     return tuple(st.rules.get(n) if isinstance(n, str) else None

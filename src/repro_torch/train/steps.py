@@ -24,9 +24,8 @@ of this runs.
 :func:`make_dp_train_step` is data parallelism with replicated
 parameters over a process group, without DTensors: each rank runs its
 share of every microbatch, and the f32 gradient sums are all-reduced
-(``all_reduce`` on the parameters' own device). It is the form that
-runs on CUDA tensors over gloo, whose functional collectives — the
-ones DTensor issues — crash on them (ROADMAP decision 6b).
+(``all_reduce`` on the parameters' own device): plain c10d collectives,
+no DTensor, which any group serves (phase 15 drives it on the card).
 """
 from __future__ import annotations
 

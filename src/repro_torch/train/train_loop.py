@@ -69,9 +69,12 @@ def _wait(t: torch.Tensor) -> None:
 def run(loop_cfg: TrainLoopConfig, *, train_step: Callable,
         params, opt_state, pipeline: TokenPipeline,
         placements=None, log_path: Optional[str] = None,
-        on_straggler: Optional[Callable[[int, float], None]] = None
+        on_straggler: Optional[Callable[[int, float], None]] = None,
+        on_checkpoint: Optional[Callable[[int, float], None]] = None
         ) -> Dict[str, Any]:
-    """Run (or resume) training; returns final state + stats."""
+    """Run (or resume) training; returns final state + stats.
+    ``on_checkpoint(step, seconds)`` follows each save, with its wall
+    on the host's clock."""
     start = 0
     latest = ckpt_lib.latest_step(loop_cfg.ckpt_dir)
     if latest is not None:
@@ -82,6 +85,14 @@ def run(loop_cfg: TrainLoopConfig, *, train_step: Callable,
         if manifest["pipeline"].get("seed", pipeline.seed) != \
                 pipeline.seed:
             raise ValueError("resume with a different data seed")
+
+    def save(at: int) -> None:
+        t0 = time.perf_counter()
+        ckpt_lib.save(loop_cfg.ckpt_dir, at, (params, opt_state),
+                      pipeline_state=pipeline.state(at).as_dict(),
+                      keep=loop_cfg.keep)
+        if on_checkpoint is not None:
+            on_checkpoint(at, time.perf_counter() - t0)
 
     watchdog = StragglerWatchdog(loop_cfg.straggler_factor,
                                  loop_cfg.straggler_window)
@@ -110,17 +121,10 @@ def run(loop_cfg: TrainLoopConfig, *, train_step: Callable,
 
             if loop_cfg.ckpt_every and \
                     (step + 1) % loop_cfg.ckpt_every == 0:
-                ckpt_lib.save(loop_cfg.ckpt_dir, step + 1,
-                              (params, opt_state),
-                              pipeline_state=pipeline.state(step + 1)
-                              .as_dict(), keep=loop_cfg.keep)
+                save(step + 1)
 
         if loop_cfg.ckpt_every:
-            ckpt_lib.save(loop_cfg.ckpt_dir, loop_cfg.total_steps,
-                          (params, opt_state),
-                          pipeline_state=pipeline.state(
-                              loop_cfg.total_steps).as_dict(),
-                          keep=loop_cfg.keep)
+            save(loop_cfg.total_steps)
     finally:
         if logf:
             logf.close()

@@ -87,6 +87,15 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def staged(cuda):
+    """The card with the staged backend built (ranks sharing the card
+    join a group that uses it), once, before any rank starts."""
+    from repro_torch.launch import mesh as tmesh
+    tmesh.build_staged_backend()
+    return cuda
+
+
 # the deep app's launch shapes: memristor (B, R, C, rows, cols) per layer
 DEEP_CB = [(4096, 7, 4, 128, 64), (4096, 2, 2, 128, 64),
            (4096, 1, 1, 128, 64)]
@@ -976,7 +985,7 @@ import torch
 import torch.distributed as dist
 from repro_torch.launch import mesh as mesh_lib
 
-rank = mesh_lib.init_fleet_group(60)
+rank = mesh_lib.init_fleet_group(60, backend=sys.argv[1])
 dev = mesh_lib.rank_device()
 torch.cuda.set_device(dev)
 out = {"rank": rank}
@@ -996,7 +1005,7 @@ try:
 except RuntimeError as exc:
     out["all_reduce_int16"] = str(exc)
 print(json.dumps(out), flush=True)
-if sys.argv[1:] == ["dtensor"]:
+if sys.argv[2:] == ["dtensor"]:
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     mesh = mesh_lib.make_mesh((2,), ("data",))
     w = distribute_tensor(torch.ones(8, 4, device=dev), mesh, [Shard(0)],
@@ -1006,12 +1015,13 @@ if sys.argv[1:] == ["dtensor"]:
 """
 
 
-def _gloo_ranks(*args):
+def _gloo_ranks(backend, *args):
     import sys
 
     from repro_torch.launch import simdev
     return simdev.launch_local_fleet(
-        [sys.executable, "-c", GLOO_WORKER, *args], 2, timeout=120.0)
+        [sys.executable, "-c", GLOO_WORKER, backend, *args], 2,
+        timeout=120.0)
 
 
 @pytest.mark.gpu
@@ -1021,7 +1031,7 @@ def test_gpu_gloo_collectives_on_cuda_tensors(cuda):
     wire) and ``reduce_scatter_tensor``, and refuses int16 (ROADMAP
     R16: the reference's wire)."""
     import json
-    res = _gloo_ranks()
+    res = _gloo_ranks("gloo")
     for r in res:
         assert r.returncode == 0, r.stderr_tail
         out = json.loads(r.stdout.strip().splitlines()[-1])
@@ -1034,14 +1044,122 @@ def test_gpu_gloo_collectives_on_cuda_tensors(cuda):
 
 @pytest.mark.gpu
 def test_gpu_dtensor_over_gloo_dies_on_cuda_tensors(cuda):
-    """Why CUDA ranks replicate the parameters (ROADMAP decision 6b):
-    DTensor's first redistribution over gloo on the card's tensors — a
-    functional collective — kills both ranks (SIGSEGV in
-    ``wait_tensor`` on torch 2.11). When this fails, the sharded
-    (DTensor) step can run on the card; see ROADMAP Queue 1 item 9h."""
-    res = _gloo_ranks("dtensor")
+    """Why ranks sharing the card join the staged group, not plain
+    gloo: DTensor's first redistribution over gloo on the card's
+    tensors — a functional all-gather — kills both ranks (SIGSEGV on
+    torch 2.11). When this fails, gloo itself could serve DTensor on
+    the card (``launch/mesh.py`` decision 1)."""
+    res = _gloo_ranks("gloo", "dtensor")
     assert all(r.returncode != 0 for r in res), [r.stdout for r in res]
     assert all('"full"' not in r.stdout for r in res)
+
+
+@pytest.mark.gpu
+def test_gpu_dtensor_over_the_staged_group_on_cuda_tensors(staged):
+    """The twin of the test above over the group ranks sharing the card
+    join (``"cpu:gloo,cuda:staged"``): the same redistribution returns
+    the whole tensor on both ranks, and the plain collectives give
+    gloo's results."""
+    import json
+    res = _gloo_ranks("cpu:gloo,cuda:staged", "dtensor")
+    for r in res:
+        assert r.returncode == 0, r.stderr_tail
+        lines = r.stdout.strip().splitlines()
+        out = json.loads(lines[-2])
+        assert out["all_reduce"] == [4.0] * 4
+        assert out["all_gather_into_tensor_int8"] == [100] * 4 + [99] * 4
+        assert "Invalid scalar type" in out["all_reduce_int16"]
+        assert json.loads(lines[-1]) == {"full": 32.0}
+
+
+SHARDED_WORKER = """
+import json
+import torch
+from repro_torch.configs import get_reduced
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import specs as specs_lib
+from repro_torch.launch.rules import kv_repeat_for, make_rules
+from repro_torch.models import model as model_lib
+from repro_torch.optim.adamw import AdamW, constant_schedule
+from repro_torch.pytree import leaves
+from repro_torch.sharding import axis_rules, tree_distribute
+from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import elastic
+from repro_torch.train import steps as steps_lib
+import sys, tempfile
+
+torch.backends.cuda.matmul.allow_tf32 = False
+rank = mesh_lib.init_fleet_group(120, backend=mesh_lib.group_backend())
+dev = mesh_lib.rank_device()
+torch.cuda.set_device(dev)
+base = get_reduced("qwen1.5-0.5b").replace(compute_dtype="float32")
+pipe = TokenPipeline(vocab_size=base.vocab_size, seq_len=16, global_batch=8,
+                     seed=4)
+opt = AdamW(lr=constant_schedule(1e-3), eps=1e-4)
+p0 = model_lib.init_params(base, 0, device=dev)
+one, _ = steps_lib.make_train_step(base, opt, global_batch=8)
+p, s, ref = p0, opt.init(p0), []
+for i in range(2):
+    p, s, m = one(p, s, pipe.batch(i))
+    ref.append(float(m["loss"]))
+
+mesh = mesh_lib.make_debug_mesh(model=2)
+cfg = base.replace(kv_repeat=kv_repeat_for(base, mesh_lib.tp_degree(mesh)))
+rules = make_rules(cfg, mesh, "train", global_batch=8)
+with axis_rules(mesh, rules):
+    psh = specs_lib.param_shardings(cfg, mesh)
+    params, state = tree_distribute(
+        (p0, opt.init(p0)), (psh, specs_lib.opt_shardings(psh, mesh)))
+    step, _ = steps_lib.make_train_step(cfg, opt, global_batch=8,
+                                        dp=mesh_lib.dp_degree(mesh))
+    got = []
+    for i in range(2):
+        params, state, m = step(params, state, pipe.batch(i))
+        got.append(float(m["loss"]))
+    whole = [x.full_tensor() for x in leaves(params)]
+    # the checkpoint of the card's DTensors, resumed on a (2, 1) mesh
+    d = sys.argv[1]
+    ckpt_lib.save(d, 2, (params, state))
+    rp, rs, rmesh, at = elastic.remesh(d, None, cfg, mesh=elastic.best_mesh_for(
+        2, 1), global_batch=8)
+    back = max(float((x.full_tensor() - w).abs().max())
+               for x, w in zip(leaves(rp), whole))
+diff = max(float((a - b).abs().max()) for a, b in zip(whole, leaves(p)))
+big = max(float(b.abs().max()) for b in leaves(p))
+print(json.dumps({"rank": rank, "ref": ref, "got": got, "rel": diff / big,
+                  "mesh": mesh_lib.mesh_axis_sizes(mesh),
+                  "remesh": mesh_lib.mesh_axis_sizes(rmesh), "at": at,
+                  "restored_max_abs": back,
+                  "staged_bytes": mesh_lib.staged_bytes(),
+                  "wq": str(params["stack"]["attn"]["wq"].placements)}))
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_sharded_train_step_on_two_ranks_sharing_the_card(staged,
+                                                              tmp_path):
+    """The reduced qwen's sharded (TP) train step on a (1, 2) mesh of two
+    ranks sharing the card, over the staged group: its 2 losses and
+    final parameters within rel 1e-5 of one process's on the card; the
+    checkpoint of its DTensors restores onto a (2, 1) mesh
+    (``elastic.remesh``) to the bit."""
+    import json
+    import sys
+
+    from repro_torch.launch import simdev
+    res = simdev.launch_local_fleet(
+        [sys.executable, "-c", SHARDED_WORKER, str(tmp_path)], 2,
+        timeout=300.0)
+    for r in res:
+        assert r.returncode == 0, r.stderr_tail
+    for o in [json.loads(r.stdout.strip().splitlines()[-1]) for r in res]:
+        assert o["mesh"] == {"data": 1, "model": 2}
+        assert o["remesh"] == {"data": 2, "model": 1} and o["at"] == 2
+        for a, b in zip(o["got"], o["ref"]):
+            assert abs(a - b) / abs(b) <= 1e-5, (o["got"], o["ref"])
+        assert o["rel"] <= 1e-5 and o["restored_max_abs"] == 0.0, o
+        assert o["staged_bytes"] > 0 and "Shard" in o["wq"]
 
 
 PIPE_WORKER = """

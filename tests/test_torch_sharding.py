@@ -30,7 +30,9 @@
     mesh, trains, and writes checkpoints that restore (in one process
     it refuses: ``test_torch_train.py``). As a rank it takes the MoE,
     hybrid and ssm families on the CPU (their gates above hold: it gets
-    as far as joining the group) and refuses ranks on the card.
+    as far as joining the group), and ranks on the card join the group
+    ``launch.mesh.group_backend`` chooses (the staged backend on a
+    shared card, NCCL with a card a rank).
 
 The spawned ranks (a supervisor timeout of 240 s each) pay most of
 their time in their first sharded step on torch 2.13, where DTensor
@@ -379,8 +381,8 @@ class _Joined(Exception):
 def test_launcher_ranks_take_the_sharded_families(arch, monkeypatch):
     from repro_torch.launch import train as tlaunch
 
-    def join(timeout_s):
-        raise _Joined(timeout_s)
+    def join(timeout_s, backend=None):
+        raise _Joined(timeout_s, backend)
 
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(tmesh, "init_fleet_group", join)
@@ -390,11 +392,26 @@ def test_launcher_ranks_take_the_sharded_families(arch, monkeypatch):
             ["--arch", arch, "--reduced", "--device", "cpu"]))
 
 
-@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
-def test_launcher_ranks_refuse_the_card(device, monkeypatch):
+@pytest.mark.parametrize("device,cards,backend", [
+    (None, 1, "cpu:gloo,cuda:staged"), ("cuda", 1, "cpu:gloo,cuda:staged"),
+    ("cuda:0", 1, "cpu:gloo,cuda:staged"), (None, 2, "cpu:gloo,cuda:nccl")])
+def test_launcher_ranks_on_the_card_join_the_chosen_group(
+        device, cards, backend, monkeypatch):
+    """Ranks on the card reach the group join (no refusal): with the
+    staged backend where two ranks share one card, NCCL where each has
+    its own."""
     from repro_torch.launch import train as tlaunch
+
+    def join(timeout_s, backend=None):
+        raise _Joined(backend)
+
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(tmesh, "init_fleet_group", join)
     argv = ["--arch", "qwen1.5-0.5b", "--reduced"]
-    with pytest.raises(NotImplementedError, match="ranks on the card"):
+    with pytest.raises(_Joined) as joined:
         tlaunch.setup(tlaunch.parse_args(
             argv + (["--device", device] if device else [])))
+    assert joined.value.args == (backend,)
