@@ -1,0 +1,7 @@
+"""kernels_per_batch.host: ``kernels_per_batch`` (``kernels_per_batch.py``) read in the host-handover cells,
+where it moves ``batch_p95_ms``."""
+from pathlib import Path
+
+from portbench.harness import load_module
+
+read = load_module(Path(__file__).with_name("kernels_per_batch.py")).read
