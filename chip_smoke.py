@@ -1854,6 +1854,12 @@ def phase_deploy(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
     tel = obs.configure()
     try:
         done, per = on_path(two.serve, sources)
+        # the chip's own spans, off the path: a direct stream, timed on
+        # the card by events resolved after one synchronise
+        two.chip("deep_memristor").stream(x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        unresolved = tel.tracer.resolve_device_times()
         events = tel.tracer.trace_events()
         trace_path = two.trace(os.path.join(ROOT, "build",
                                             "phase10_trace.json"))
@@ -1882,6 +1888,13 @@ def phase_deploy(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
     _require(trace_ok(doc, len(done)) and brk["steps"] == steps and
              0.90 <= tiled <= 1.02,
              f"trace: {brk['steps']} steps, phases/steps {tiled:.4f}")
+    chip_spans = [e for e in events if e.get("cat") == "chip"]
+    streams = [e for e in chip_spans if e["name"] == "chip.stream"]
+    _require(len(streams) == 1 and unresolved == 0 and
+             streams[0]["args"]["compile_delta"] == 0 and
+             all(("device_ms" in e["args"]) == (dev.type == "cuda")
+                 for e in chip_spans),
+             f"chip spans {[(e['name'], e['args']) for e in chip_spans]}")
     lines["two_tenants"] = {
         "requests": len(done), "steps": steps, "launches": per,
         "served_max_abs_diff": diff, "roll_up": fleet,
@@ -1889,6 +1902,8 @@ def phase_deploy(torch, ops, ref, tcompile, tq, tcl, chip_mod, var, dev,
                              for k, v in sorted(brk["phases"].items())},
         "step_ms_mean": brk["step_us"] / brk["steps"] / 1e3,
         "phases_over_steps": tiled,
+        "chip_span_device_ms": [[e["name"], e["args"].get("device_ms")]
+                                for e in chip_spans],
         "trace": os.path.relpath(trace_path, ROOT),
         "trace_events": len(doc["traceEvents"])}
 

@@ -54,6 +54,7 @@ from repro_torch.core.mapping import Mapping, Net, map_networks
 from repro_torch.core.neural_core import (DIGITAL_GEOM, MEMRISTOR_GEOM,
                                           CoreGeometry)
 from repro_torch.core.systems import normalize_system, system_mode
+from repro_torch.obs.core import NULL_RECORDER
 from repro_torch.obs.core import current as _obs_current
 from repro_torch.runtime import DeviceLike, resolve_device
 
@@ -161,8 +162,8 @@ def _layer_plan(lp, bias: torch.Tensor, activation: str,
 
 def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
                        use_kernel: bool,
-                       decay: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       decay: Optional[torch.Tensor] = None,
+                       rec=NULL_RECORDER) -> torch.Tensor:
     """Sub-neuron stage: per-row-chunk partial dot products.
 
     x (B, d_in) → (B, R, d_out). The same tile arithmetic as
@@ -175,12 +176,15 @@ def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
     ``decay`` (temporal drift) relaxes both pair devices with the cell's
     own factor before either path; the program-time fold ``scale`` is
     frozen physical state, so the decay is an uncorrected error — the
-    accuracy loss closed-loop recalibration exists to repair."""
+    accuracy loss closed-loop recalibration exists to repair.
+
+    ``rec`` brackets the pad to the tile grid (``chip.tile``)."""
     if decay is not None:
         p = dataclasses.replace(p, gp=p.gp * decay, gn=p.gn * decay)
     R = p.gp.shape[0]
     cdtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    xt = tile_inputs(p, x.to(cdtype))
+    with rec.span("chip.tile"):
+        xt = tile_inputs(p, x.to(cdtype))
     if use_kernel:
         from repro_torch.kernels import ops as kops
         parts = kops.crossbar_mvm(xt, p.gp, p.gn, p.scale, partials=True)
@@ -193,24 +197,29 @@ def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
 
 def _apply_stream_layer(layer: StreamLayer, x: torch.Tensor,
                         use_kernel: bool,
-                        age: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        age: Optional[torch.Tensor] = None,
+                        rec=NULL_RECORDER) -> torch.Tensor:
+    """One layer of the mapped dataflow; ``rec`` brackets its stages
+    (``chip.tile``, ``chip.combine``, ``chip.quantize``)."""
     if isinstance(layer.tiles, DigitalParams):
         return digital_apply(layer.tiles, x, bias=layer.bias,
                              activation=layer.activation,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, rec=rec)
     decay = None
     if layer.drift is not None and age is not None:
         decay = torch.exp(-layer.drift * age)
     parts = _crossbar_partials(layer.tiles, x, use_kernel,
-                               decay)                          # (B, R, d)
-    for w, (groups, fan_in) in zip(layer.combine, layer.levels):
-        B, K, d = parts.shape
-        pad = groups * fan_in - K
-        if pad:
-            parts = torch.nn.functional.pad(parts, (0, 0, 0, pad))
-        parts = torch.einsum("bgkd,k->bgd",
-                             parts.reshape(B, groups, fan_in, d),
-                             w.to(parts.dtype))
+                               decay, rec)                     # (B, R, d)
+    if layer.combine:
+        with rec.span("chip.combine"):
+            for w, (groups, fan_in) in zip(layer.combine, layer.levels):
+                B, K, d = parts.shape
+                pad = groups * fan_in - K
+                if pad:
+                    parts = torch.nn.functional.pad(parts, (0, 0, 0, pad))
+                parts = torch.einsum("bgkd,k->bgd",
+                                     parts.reshape(B, groups, fan_in, d),
+                                     w.to(parts.dtype))
     out = parts[:, 0, :]
     out = out + layer.bias[None, :]
     return q.make_activation(layer.activation)(out)
@@ -219,7 +228,8 @@ def _apply_stream_layer(layer: StreamLayer, x: torch.Tensor,
 def stream_pipeline(plan: Tuple[StreamLayer, ...], x: torch.Tensor,
                     use_kernel: bool = True,
                     replication: int = 1,
-                    age: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    age: Optional[torch.Tensor] = None,
+                    rec=NULL_RECORDER) -> torch.Tensor:
     """Stage-ordered evaluation of the whole mapped pipeline, with
     replica fan-out: the batch is dealt across the ``replication``
     identical pipeline copies (§V.C), each streaming its shard through
@@ -230,11 +240,12 @@ def stream_pipeline(plan: Tuple[StreamLayer, ...], x: torch.Tensor,
     ``age`` (an f32 scalar tensor on the plan's device: items streamed
     since programming) activates the per-cell drift decay on layers
     that carry a ``drift`` field. Every item of the call, on every
-    replica, sees the batch's entry age."""
+    replica, sees the batch's entry age. ``rec`` (an ``obs`` span
+    recorder) brackets each layer's stages."""
     def replica(xb):
         h = xb
         for layer in plan:
-            h = _apply_stream_layer(layer, h, use_kernel, age)
+            h = _apply_stream_layer(layer, h, use_kernel, age, rec)
         return h
 
     B = x.shape[0]
@@ -246,6 +257,18 @@ def stream_pipeline(plan: Tuple[StreamLayer, ...], x: torch.Tensor,
     per = math.ceil(B / replication)
     xp = torch.nn.functional.pad(x, (0, 0, 0, replication * per - B))
     return replica(xp)[:B]
+
+
+def _resident(x, device: torch.device) -> bool:
+    """``x`` is a tensor on ``device`` already (``cuda`` without an
+    index: the current card), so streaming it needs no handover."""
+    if not isinstance(x, torch.Tensor):
+        return False
+    if x.device == device:
+        return True
+    return device.type == "cuda" and device.index is None and \
+        x.device.type == "cuda" and \
+        x.device.index == torch.cuda.current_device()
 
 
 # --------------------------------------------------------------------- #
@@ -318,7 +341,14 @@ class CompiledChip:
         ``fan_out=False`` pins the whole batch onto one replica. Under
         a drifting noise model the call evaluates at the chip's current
         age and then advances the drift clock by the batch size;
-        ``advance_age=False`` makes it a pure probe."""
+        ``advance_age=False`` makes it a pure probe.
+
+        With ``repro_torch.obs`` telemetry on, the call is a
+        ``chip.stream`` span (its rows and the compile_count delta: a
+        stream must never re-run the program pass) over the handover
+        (``chip.handover``) and each layer's stages, each timed on the
+        card by CUDA events, resolved later: the call never waits for
+        the card."""
         if self.plan is None:
             raise ValueError(
                 "this chip was compiled from bare network shapes "
@@ -326,7 +356,24 @@ class CompiledChip:
                 "but stream() and serve() need programmed state. "
                 "Re-compile with compile_chip(spec, params=...) or "
                 "from a ProgrammedMLP.")
-        x = torch.as_tensor(x, device=self.device)
+        tel = _obs_current()
+        if not tel.active:
+            return self._stream(x, use_kernel, fan_out, advance_age,
+                                NULL_RECORDER)
+        rec = tel.spans(self.device, cat="chip")
+        c0 = _COMPILE_COUNT
+        with rec.span("chip.stream", system=self.system) as span:
+            out = self._stream(x, use_kernel, fan_out, advance_age, rec)
+            rows = math.prod(out.shape[:-1])
+            span.set(rows=rows, compile_delta=_COMPILE_COUNT - c0)
+        tel.metrics.counter("chip.items_streamed").inc(rows)
+        return out
+
+    def _stream(self, x, use_kernel: bool, fan_out: bool,
+                advance_age: bool, rec) -> torch.Tensor:
+        if not _resident(x, self.device):
+            with rec.span("chip.handover"):
+                x = torch.as_tensor(x, device=self.device)
         lead = x.shape[:-1]
         xf = x.reshape(-1, x.shape[-1])
         rep = self.mapping.replication if fan_out else 1
@@ -336,28 +383,8 @@ class CompiledChip:
             # filled on the device: no host-to-device copy
             age = torch.full((), float(self.items_streamed),
                              dtype=torch.float32, device=self.device)
-        tel = _obs_current()
-        if not tel.active:
-            out = stream_pipeline(self.plan, xf, use_kernel=use_kernel,
-                                  replication=rep, age=age)
-        else:
-            # program-vs-stream economics, measured: the stream span
-            # carries the compile_count delta (a stream must never
-            # re-run the program pass) next to the per-batch wall time
-            t0 = time.perf_counter()
-            c0 = _COMPILE_COUNT
-            out = stream_pipeline(self.plan, xf, use_kernel=use_kernel,
-                                  replication=rep, age=age)
-            if out.device.type == "cuda":
-                torch.cuda.synchronize(out.device)
-            dur = time.perf_counter() - t0
-            tel.tracer.complete(
-                "chip.stream", t0, dur, tid=0, cat="chip",
-                args={"rows": int(xf.shape[0]), "system": self.system,
-                      "compile_delta": _COMPILE_COUNT - c0})
-            tel.metrics.counter("chip.items_streamed").inc(
-                int(xf.shape[0]))
-            tel.metrics.histogram("chip.stream_s").record(dur)
+        out = stream_pipeline(self.plan, xf, use_kernel=use_kernel,
+                              replication=rep, age=age, rec=rec)
         if age is not None and advance_age:
             self.advance_age(xf.shape[0])
         return out.reshape(*lead, out.shape[-1]).to(x.dtype)
@@ -588,7 +615,6 @@ def compile_chip(networks: NetworksLike, *,
                                   "dims": list(dims) if dims else None,
                                   "streamable": plan is not None})
         tel.metrics.counter("chip.compiles").inc()
-        tel.metrics.gauge("chip.compile_count").set(_COMPILE_COUNT)
         tel.metrics.histogram("chip.compile_s").record(dur)
     return chip
 

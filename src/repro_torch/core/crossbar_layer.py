@@ -57,6 +57,7 @@ from repro_torch.core.crossbar import (column_gain, pairs_from_weights,
                                        wire_attenuation)
 from repro_torch.core.device import DEFAULT_DEVICE, DeviceModel
 from repro_torch.core.neural_core import CoreGeometry, MEMRISTOR_GEOM
+from repro_torch.obs.core import NULL_RECORDER
 from repro_torch.runtime import DeviceLike, resolve_device
 
 
@@ -336,7 +337,8 @@ def quantize_inputs(params: DigitalParams, x: torch.Tensor
 def digital_apply(params: DigitalParams, x: torch.Tensor, *,
                   bias: Optional[torch.Tensor] = None,
                   activation: str = "linear",
-                  use_kernel: bool = False) -> torch.Tensor:
+                  use_kernel: bool = False,
+                  rec=NULL_RECORDER) -> torch.Tensor:
     """Streaming evaluate on the digital core: quantize inputs, int
     MAC, fused requantize + bias + activation epilogue.
 
@@ -346,16 +348,21 @@ def digital_apply(params: DigitalParams, x: torch.Tensor, *,
     combined exactly in int64), then the same epilogue in PyTorch. The
     reference's kernel path wraps wide codes into uint8 (R4) and its
     einsum path sums them in int32, which can overflow (R5); here both
-    paths are exact, and equal to the bit."""
+    paths are exact, and equal to the bit. ``rec`` (an ``obs`` span
+    recorder) brackets the DAC codes (``chip.quantize``)."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    xq = quantize_inputs(params, xf)
+    fused = use_kernel and params.planes is None
+    with rec.span("chip.quantize"):
+        xq = quantize_inputs(params, xf)
+        if fused:
+            xq = xq.to(torch.uint8)
     offset = params.offset
     if bias is not None:
         offset = offset + bias.to(torch.float32).reshape(-1)
-    if use_kernel and params.planes is None:
+    if fused:
         from repro_torch.kernels import ops as kops
-        out = kops.int8_matmul(xq.to(torch.uint8), params.wq,
+        out = kops.int8_matmul(xq, params.wq,
                                params.scale, offset,
                                activation=activation)
     else:

@@ -17,7 +17,8 @@ two-tenant deployment with telemetry configured and checks:
     measured phase breakdown is printed, and ``device_step`` takes
     more than half of the step;
   * ``chip.compile`` and ``chip.stream`` spans are recorded, every
-    stream span with a zero compile delta;
+    stream span with a zero compile delta and, on the card, a device
+    time resolved after one synchronise (the call itself never waits);
   * ``Deployment.trace(path)`` writes a loadable Chrome trace: every
     complete span carries pid/tid/ts/dur, phases nest inside their
     step span, async begin/end events pair up.
@@ -156,6 +157,9 @@ def selftest(verbose: bool = True, device=None, n_chips: int = 2) -> bool:
 
     # -- chip-level spans -------------------------------------------- #
     d.chip("alpha").stream(torch.zeros((2, dims_a[0]), device=dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    left = tel.tracer.resolve_device_times()
     chips = [e for e in tel.tracer.trace_events() if e.get("cat") == "chip"]
     streams = [e for e in chips if e["name"] == "chip.stream"]
     check("chip compile and stream spans recorded, zero stream-time "
@@ -163,6 +167,12 @@ def selftest(verbose: bool = True, device=None, n_chips: int = 2) -> bool:
           any(e["name"] == "chip.compile" for e in chips) and streams and
           all(e.get("args", {}).get("compile_delta", 0) == 0
               for e in streams))
+    timed = [e for e in chips if "device_ms" in e["args"]]
+    want = [e for e in chips if e["name"] != "chip.compile"] \
+        if dev.type == "cuda" else []
+    check("chip spans carry device times on the card, resolved after "
+          "one synchronise", left == 0 and timed == want,
+          f"{len(timed)} of {len(want)} timed")
 
     # -- trace file: loadable, schema-valid, nested ------------------ #
     with tempfile.TemporaryDirectory(prefix="repro_torch_obs_") as tmp:

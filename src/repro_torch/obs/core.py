@@ -16,6 +16,12 @@ device_step, gather, finish) with ``phase(...)``, and ``close()``
 emits the step span plus per-phase histograms — the measured
 scatter/compute/gather split of an engine step.
 ``NULL_RECORDER`` is its inert twin for the un-traced path.
+
+:class:`SpanRecorder` is the stream path's instrument
+(:meth:`Telemetry.spans`): spans on one device, each timed on the card
+by :meth:`Tracer.span`'s event pair. The stream path's hooks call
+``rec.span(name)`` on it or on ``NULL_RECORDER``, whose spans are
+no-ops.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import time
 from typing import Optional
 
 from repro_torch.obs.metrics import DEFAULT_RESERVOIR, MetricsRegistry
-from repro_torch.obs.trace import Tracer
+from repro_torch.obs.trace import NULL_SPAN, Tracer
 
 
 class Telemetry:
@@ -40,6 +46,13 @@ class Telemetry:
     @property
     def active(self) -> bool:
         return self.metrics.enabled or self.tracer.enabled
+
+    def spans(self, device, cat: str = "span"):
+        """The span recorder for work on ``device``
+        (``NULL_RECORDER`` while the tracer is off)."""
+        if not self.tracer.enabled:
+            return NULL_RECORDER
+        return SpanRecorder(self.tracer, device, cat)
 
 
 _DISABLED = Telemetry()
@@ -103,29 +116,34 @@ class _Phase:
         return False
 
 
-class _NullPhase:
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-_NULL_PHASE = _NullPhase()
-
-
 class NullRecorder:
-    """The inert recorder the un-traced step body runs against."""
+    """The inert recorder the un-traced step body and stream path run
+    against."""
     __slots__ = ()
     phases: dict = {}
 
     def phase(self, name: str, **args):
-        return _NULL_PHASE
+        return NULL_SPAN
+
+    def span(self, name: str, **args):
+        return NULL_SPAN
 
 
 NULL_RECORDER = NullRecorder()
+
+
+class SpanRecorder:
+    """Spans of one category on one device (:meth:`Tracer.span`)."""
+    __slots__ = ("tracer", "device", "cat")
+
+    def __init__(self, tracer: Tracer, device, cat: str):
+        self.tracer = tracer
+        self.device = device
+        self.cat = cat
+
+    def span(self, name: str, **args):
+        return self.tracer.span(name, device=self.device, cat=self.cat,
+                                args=args)
 
 
 class StepRecorder:

@@ -1,8 +1,7 @@
 """Span tracer emitting Chrome/Perfetto trace-event JSON.
 
-Port copy of ``repro.obs.trace``: the same plain Python (it imports
-no JAX, but ``repro``'s package does, so ``repro_torch`` keeps its
-own copy).
+Port of ``repro.obs.trace`` (``repro``'s package imports JAX, so
+``repro_torch`` keeps its own), with spans timed on the card.
 
 One :class:`Tracer` per process accumulates events host-side (no
 I/O until ``write``) and serializes the Trace Event Format that
@@ -24,6 +23,21 @@ no-ops when ``enabled=False``; the event buffer is bounded
 (``max_events``), dropping newest-first with an exact drop counter —
 a tracer never becomes the memory leak it exists to find.
 
+:meth:`Tracer.span` brackets work that may run on the card: beside the
+host stamps, a pair of timing CUDA events from a pool brackets the
+work on the device's current stream, and the pair's elapsed time lands
+in the span's ``args.device_ms`` once the card has passed both events
+— found lazily, with no synchronise on the recording path
+(:meth:`Tracer.resolve_device_times` after the caller's own). Spans
+nest: each carries its id (``args.span``), its parent's
+(``args.parent``) and its root's (``args.call``).
+
+The tracer's clock anchor (a ``perf_counter_ns`` / ``time_ns`` pair
+taken back to back) maps its timestamps onto the Unix-epoch
+nanoseconds ``torch.profiler``'s events carry (:meth:`Tracer.unix_ns`,
+and ``otherData.clock`` of a written trace), so a trace of the program
+and a profile of the card lay on one timeline.
+
 Two readers of the recorded events are the port's own:
 :func:`phase_breakdown` (the step-phase sums the telemetry selftest and
 ``chip_smoke.py`` print) and :func:`trace_ok` (a written trace's schema,
@@ -31,12 +45,110 @@ nesting and async pairing).
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import json
+import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 # track (tid) layout: 0 = engine steps/phases; lanes start here
 LANE_TID_BASE = 100
+# back-to-back clock reads the anchor keeps the tightest of
+ANCHOR_TRIES = 16
+
+
+def clock_anchor() -> Tuple[int, int, int]:
+    """(``perf_counter_ns``, ``time_ns``, error ns): the Unix time read
+    between two monotonic reads, the tightest of ``ANCHOR_TRIES``
+    pairs; the monotonic stamp is the pair's midpoint and the error
+    half its width."""
+    best = None
+    for _ in range(ANCHOR_TRIES):
+        a = time.perf_counter_ns()
+        u = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[2]:
+            best = ((a + b) // 2, u, b - a)
+    perf, unix, width = best
+    return perf, unix, width // 2
+
+
+class _NullSpan:
+    """The inert span: what every recorder hands out with tracing off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """One live span (:meth:`Tracer.span`)."""
+    __slots__ = ("tracer", "name", "cat", "args", "device", "t0", "pair",
+                 "stream")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict,
+                 device):
+        self.tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self.device = device
+        self.pair = None
+
+    def set(self, **args) -> None:
+        """Add to the span's args (e.g. what is known only at its end)."""
+        self.args.update(args)
+
+    def __enter__(self):
+        tr = self.tracer
+        stack = tr._open_spans()
+        sid = next(tr._ids)
+        args = self.args
+        args["span"] = sid
+        if stack:
+            parent = stack[-1].args
+            args["parent"] = parent["span"]
+            args["call"] = parent["call"]
+        else:
+            args["call"] = sid
+        stack.append(self)
+        self.t0 = time.perf_counter()
+        dev = self.device
+        if dev is not None and dev.type == "cuda":
+            self.stream = torch.cuda.current_stream(dev)
+            self.pair = tr._take_pair(self.stream)
+            if self.pair is not None:
+                self.pair[0].record(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.tracer
+        if self.pair is not None:
+            self.pair[1].record(self.stream)
+        dur = time.perf_counter() - self.t0
+        stack = tr._open_spans()
+        stack.pop()
+        ev = {"name": self.name, "ph": "X", "cat": self.cat,
+              "pid": tr.pid, "tid": 0, "ts": tr.ts_us(self.t0),
+              "dur": dur * 1e6, "args": self.args}
+        kept = tr._append(ev)
+        if self.pair is not None:
+            tr._settle(ev if kept else None, self.pair)
+        if not stack:
+            tr._poll()
+        return False
 
 
 class Tracer:
@@ -46,8 +158,18 @@ class Tracer:
         self.pid = int(pid)
         self.max_events = int(max_events)
         self.dropped = 0
+        # spans that got no event pair (the budget was spent)
+        self.dropped_device = 0
         self.t0 = time.perf_counter()
+        self.clock = clock_anchor()
         self._events: List[Dict[str, Any]] = []
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+        # (event or None, (start, end, device index)) in the order the
+        # ends were recorded; idle pairs by device index
+        self._pending: collections.deque = collections.deque()
+        self._free: Dict[int, list] = {}
+        self._lock = threading.Lock()
 
     # ---------------- clock ---------------------------------------- #
     def ts_us(self, t_perf: float) -> float:
@@ -57,11 +179,85 @@ class Tracer:
         timeline."""
         return max(0.0, (t_perf - self.t0) * 1e6)
 
-    def _append(self, ev: Dict[str, Any]) -> None:
+    def unix_ns(self, ts_us: float) -> int:
+        """A trace timestamp (µs from the tracer's epoch) → Unix-epoch
+        nanoseconds, the clock of ``torch.profiler``'s events."""
+        perf, unix, _ = self.clock
+        return unix + round(self.t0 * 1e9 + ts_us * 1e3) - perf
+
+    def _append(self, ev: Dict[str, Any]) -> bool:
         if len(self._events) >= self.max_events:
             self.dropped += 1
-            return
+            return False
         self._events.append(ev)
+        return True
+
+    # ---------------- spans with device time ----------------------- #
+    def span(self, name: str, *, device=None, cat: str = "span",
+             args: Optional[dict] = None):
+        """A context manager that records one complete span around its
+        body (on the engine track, tid 0), nested under the span open on
+        this thread. On a CUDA
+        ``device`` a pair of timing events brackets the body on the
+        device's current stream; their elapsed ms become
+        ``args.device_ms`` once the card has passed them. That is the
+        card's time from the body's first queued work to its last: the
+        body's own work where the host runs ahead of the card, plus the
+        card's waits for the body's launches where the host paces it."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Span(self, name, cat, dict(args or ()), device)
+
+    def _open_spans(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _take_pair(self, stream):
+        """An idle event pair of ``stream``'s device, or None when
+        pending pairs and events have spent ``max_events``."""
+        idx = stream.device_index
+        with self._lock:
+            free = self._free.setdefault(idx, [])
+            if free:
+                return free.pop()
+            if len(self._events) + len(self._pending) >= self.max_events:
+                self.dropped_device += 1
+                return None
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True), idx)
+
+    def _settle(self, ev, pair) -> None:
+        with self._lock:
+            self._pending.append((ev, pair))
+
+    def _resolve(self, ev, pair) -> None:
+        start, end, idx = pair
+        if ev is not None:
+            ev["args"]["device_ms"] = start.elapsed_time(end)
+        self._free[idx].append(pair)
+
+    def _poll(self) -> None:
+        """Resolve the pending pairs the card has passed, oldest first,
+        up to the first it has not; waits for nothing."""
+        with self._lock:
+            pending = self._pending
+            while pending and pending[0][1][1].query():
+                self._resolve(*pending.popleft())
+
+    def resolve_device_times(self) -> int:
+        """Resolve every pending pair the card has passed (call after a
+        synchronise to resolve them all); returns how many are left."""
+        with self._lock:
+            left = collections.deque()
+            for ev, pair in self._pending:
+                if pair[1].query():
+                    self._resolve(ev, pair)
+                else:
+                    left.append((ev, pair))
+            self._pending = left
+            return len(left)
 
     # ---------------- recording ------------------------------------ #
     def complete(self, name: str, t_start: float, dur_s: float, *,
@@ -143,7 +339,9 @@ class Tracer:
 
     def to_dict(self) -> dict:
         """The loadable trace object, with process/thread naming
-        metadata so Perfetto labels the tracks."""
+        metadata so Perfetto labels the tracks; device times the card
+        has finished are resolved first (nothing is waited for)."""
+        self.resolve_device_times()
         tids = sorted({ev["tid"] for ev in self._events})
         meta: List[Dict[str, Any]] = [
             {"name": "process_name", "ph": "M", "pid": self.pid,
@@ -154,9 +352,16 @@ class Tracer:
             meta.append({"name": "thread_name", "ph": "M",
                          "pid": self.pid, "tid": tid,
                          "args": {"name": label}})
+        perf, unix, err = self.clock
         return {"traceEvents": meta + self._events,
                 "displayTimeUnit": "ms",
-                "otherData": {"dropped_events": self.dropped}}
+                "otherData": {
+                    "dropped_events": self.dropped,
+                    "dropped_device_times": self.dropped_device,
+                    # ts µs → Unix ns: epoch_unix_ns + 1000 · ts
+                    "clock": {"epoch_unix_ns": self.unix_ns(0.0),
+                              "perf_counter_ns": perf, "unix_ns": unix,
+                              "error_ns": err}}}
 
     def write(self, path: str) -> str:
         with open(path, "w") as f:

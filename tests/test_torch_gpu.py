@@ -1334,3 +1334,76 @@ def test_gpu_dryrun_peak_of_a_reduced_step_matches_the_card(cuda):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert abs(out["predicted"] - out["measured"]) <= 0.10 * out["measured"], \
         out
+
+
+# the card sleeps while the host queues a burst: ~0.2 s at the H100's clock
+BURST_SLEEP_CYCLES = 400_000_000
+
+
+@pytest.mark.gpu
+def test_gpu_stream_spans_resolve_after_one_synchronise(cuda, monkeypatch):
+    """With telemetry on, a burst of deep-app stream calls dispatched
+    ahead (queued behind a sleep, so the card runs them back to back)
+    calls no synchronise; after one final synchronise every span has a
+    device time, and the combiner's spans read within 15 % of the
+    profiler's sum of the kernels the combiner's operations launched
+    (host operations placed inside the spans through the tracer's clock
+    anchor)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    tspec = tcl.MLPSpec(DEEP)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+    chip = compile_chip(tspec, params=params, system="memristor",
+                        device=cuda)
+    x = torch.rand((65536, 784), generator=torch.Generator().manual_seed(1),
+                   device="cpu").to(cuda)
+    want = chip.stream(x)
+    torch.cuda.synchronize()
+    calls = 8
+    tel = obs.configure()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync = torch.cuda.synchronize
+            with monkeypatch.context() as m:
+                def refuse(*args, **kw):
+                    raise AssertionError("a stream call synchronised")
+                m.setattr(torch.cuda, "synchronize", refuse)
+                torch.cuda._sleep(BURST_SLEEP_CYCLES)
+                mark = torch.cuda.Event()
+                mark.record()
+                outs = [chip.stream(x) for _ in range(calls)]
+                starved = mark.query()
+            sync()
+        left = tel.tracer.resolve_device_times()
+        events = tel.tracer.trace_events()
+        tracer = tel.tracer
+    finally:
+        obs.disable()
+    assert not starved, "the card woke before the burst was queued"
+    assert all(torch.equal(y, want) for y in outs)
+    assert left == 0
+    names = [e["name"] for e in events]
+    assert names.count("chip.stream") == calls
+    assert names.count("chip.tile") == 3 * calls
+    assert names.count("chip.combine") == 2 * calls
+    assert "chip.handover" not in names        # the batch is resident
+    assert all(e["args"].get("device_ms", 0) > 0 for e in events), events
+
+    combine = [(tracer.unix_ns(e["ts"]), tracer.unix_ns(e["ts"] + e["dur"]))
+               for e in events if e["name"] == "chip.combine"]
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    kernel_us, ops_inside = 0.0, []
+    for fe in prof.events():
+        mid = t0 + 500 * (fe.time_range.start + fe.time_range.end)
+        if fe.kernels and any(a <= mid <= b for a, b in combine):
+            kernel_us += sum(k.duration for k in fe.kernels)
+            ops_inside.append(fe.name)
+    span_ms = sum(e["args"]["device_ms"] for e in events
+                  if e["name"] == "chip.combine")
+    assert kernel_us > 0, "no profiled operation inside a combiner span"
+    assert abs(span_ms - kernel_us / 1e3) <= 0.15 * kernel_us / 1e3, \
+        (span_ms, kernel_us / 1e3, sorted(set(ops_inside)))
