@@ -863,7 +863,9 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                          lambda: torch.matmul(xs.transpose(0, 1), w_fold))})
         h = tcompile._apply_stream_layer(layer, h, False)
 
-    # int8 kernel, fused, on the digital chip's own synapses and codes
+    # int8 kernel, fused, on the digital chip's own synapses and codes;
+    # then on the layer's f32 inputs with the DAC in the kernel's load
+    rows_dac = []
     h = x
     for i, layer in enumerate(chips["digital"].plan):
         p = layer.tiles
@@ -874,6 +876,27 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
         plain = ref.int8_matmul_fused_ref(xq, p.wq, p.scale, offset)
         e = _rel(out, plain)
         _require(e <= TOL_I8, f"int8 layer {i} (chip operands): rel {e:.3g}")
+        dac = tcl.dac_of(p)
+        _require(torch.equal(ops.int8_matmul(h, p.wq, p.scale, offset,
+                                             dac=dac), out),
+                 f"int8 layer {i}: the kernel's DAC differs from the chain")
+        t_bytes, t_ops = _bound(4 * h.numel() + p.wq.numel() + 8 * N +
+                                4 * out.numel(), 2 * STREAM_B * K * N,
+                                INT8_OPS)
+        rows_dac.append({
+            "kernel": "int8_matmul_fused", "mode": "f32 x, DAC in the load",
+            "layer": i, "shape": [STREAM_B, K, N],
+            "max_abs_err": float((out - ref.int8_matmul_dac_ref(
+                h, p.wq, p.scale, offset, dac)).abs().max()),
+            **_times(torch,
+                     lambda: ops.int8_matmul(h, p.wq, p.scale, offset,
+                                             dac=dac),
+                     lambda: ref.int8_matmul_dac_ref(h, p.wq, p.scale,
+                                                     offset, dac),
+                     lambda: torch.addcmul(
+                         offset, tcl.quantize_inputs(p, h) @ p.wq.float(),
+                         p.scale)),
+            "bytes_ms": t_bytes, "ops_ms": t_ops})
         nbytes = xq.numel() + p.wq.numel() + 8 * N + 4 * out.numel()
         t_bytes, t_ops = _bound(nbytes, 2 * STREAM_B * K * N, INT8_OPS)
         wf = p.wq.float()
@@ -916,7 +939,7 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                      lambda: xq.float() @ wf),
             "bytes_ms": rb, "ops_ms": ro})
         h = tcompile._apply_stream_layer(layer, h, False)
-    for r in rows_cb + rows_i8 + rows_raw + rows_serve:
+    for r in rows_cb + rows_i8 + rows_dac + rows_raw + rows_serve:
         r["card"] = name
         _line(r)
     # the serving batches: each kernel's times summed over the 3 layers,
@@ -937,6 +960,13 @@ def phase_times(torch, ops, ref, tcompile, tcl, chip_mod, chips, launches,
                     "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:48",
                     launches["int8_matmul_fused"], rows_i8),
     ]
+    # the same kernel on f32 inputs (the stream's mode): its own line, so
+    # the launches stay counted once
+    _line({"kernel_mode": "f32 x, DAC in the load", "card": name,
+           **_kernel_row("int8_matmul_fused", "src/repro_torch/kernels/"
+                         "csrc/int8_matmul.cu",
+                         "src/repro/kernels/int8_matmul.py:48",
+                         launches["int8_matmul_fused"], rows_dac)})
 
     # end to end: stream items/s at B = 16,384, in alternating rounds
     # (einsum, kernel, kernel, einsum) so the two paths share the card's

@@ -66,10 +66,14 @@ def _build(tree: str) -> subprocess.Popen:
 
 
 def _load(build, paths: dict) -> dict:
+    """Every entry point of ``build._ENTRY`` that a tree's libraries
+    hold (older trees lack the f32 DAC entry of ``int8_matmul``)."""
     entries = {}
-    for name, path in paths.items():
-        symbol, argtypes = build._ENTRY[name]
-        fn = getattr(ctypes.CDLL(path), symbol)
+    for name, (symbol, argtypes) in build._ENTRY.items():
+        lib = ctypes.CDLL(paths[build.library_of(name)])
+        if not hasattr(lib, symbol):
+            continue
+        fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         entries[name] = fn

@@ -57,7 +57,9 @@ from repro_torch.core.crossbar import (column_gain, pairs_from_weights,
                                        wire_attenuation)
 from repro_torch.core.device import DEFAULT_DEVICE, DeviceModel
 from repro_torch.core.neural_core import CoreGeometry, MEMRISTOR_GEOM
+from repro_torch.kernels import ref as kref
 from repro_torch.obs.core import NULL_RECORDER
+from repro_torch.obs.core import current as _obs_current
 from repro_torch.runtime import DeviceLike, resolve_device
 
 
@@ -327,11 +329,16 @@ def program_digital(w: torch.Tensor, *, bits: int = 8) -> DigitalParams:
                            d_in, d_out)
 
 
+def dac_of(params: DigitalParams) -> Tuple[float, float, int]:
+    """The input DAC's (lo, step, bits), as ``kernels.ops.int8_matmul``
+    takes them."""
+    return _DIG_LO, params.step, params.bits
+
+
 def quantize_inputs(params: DigitalParams, x: torch.Tensor
                     ) -> torch.Tensor:
     """Analog inputs → DAC codes 0..2^bits−1 (f32 holding integers)."""
-    n = 2.0 ** params.bits - 1.0
-    return torch.clamp(torch.round((x - _DIG_LO) / params.step), 0, n)
+    return kref.dac_codes(x, *dac_of(params))
 
 
 def digital_apply(params: DigitalParams, x: torch.Tensor, *,
@@ -348,38 +355,44 @@ def digital_apply(params: DigitalParams, x: torch.Tensor, *,
     combined exactly in int64), then the same epilogue in PyTorch. The
     reference's kernel path wraps wide codes into uint8 (R4) and its
     einsum path sums them in int32, which can overflow (R5); here both
-    paths are exact, and equal to the bit. ``rec`` (an ``obs`` span
-    recorder) brackets the DAC codes (``chip.quantize``)."""
+    paths are exact, and equal to the bit. At 8 bits and below the
+    kernel takes the f32 inputs and forms the DAC codes itself, in its
+    load (counted by the ``obs`` counter ``chip.dac_in_kernel``, one a
+    layer).
+
+    ``rec`` (an ``obs`` span recorder) brackets the DAC codes
+    (``chip.quantize``); on the 8-bit kernel path the codes are formed
+    inside the one kernel launch, so there the span covers the DAC
+    together with the MAC."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    fused = use_kernel and params.planes is None
-    with rec.span("chip.quantize"):
-        xq = quantize_inputs(params, xf)
-        if fused:
-            xq = xq.to(torch.uint8)
     offset = params.offset
     if bias is not None:
         offset = offset + bias.to(torch.float32).reshape(-1)
-    if fused:
+    if use_kernel and params.planes is None:
         from repro_torch.kernels import ops as kops
-        out = kops.int8_matmul(xq, params.wq,
-                               params.scale, offset,
-                               activation=activation)
+        with rec.span("chip.quantize"):
+            out = kops.int8_matmul(xf.contiguous(), params.wq,
+                                   params.scale, offset,
+                                   activation=activation,
+                                   dac=dac_of(params))
+        _obs_current().metrics.counter("chip.dac_in_kernel").inc()
+        return out.reshape(*lead, params.d_out).to(x.dtype)
+    with rec.span("chip.quantize"):
+        xq = quantize_inputs(params, xf)
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        acc = kops.int8_matmul_planes(
+            unsigned_byte_planes(xq, math.ceil(params.bits / 8)),
+            params.planes)
     else:
-        if use_kernel:
-            from repro_torch.kernels import ops as kops
-            acc = kops.int8_matmul_planes(
-                unsigned_byte_planes(xq, math.ceil(params.bits / 8)),
-                params.planes)
-        else:
-            # integer products summed exactly in f64 (PyTorch has no
-            # integer matmul on CUDA)
-            acc = xq.to(torch.float64) @ params.wq.to(torch.float64)
-        # the exact integer rounded once to f32, as an int32
-        # accumulator is where it does not overflow
-        out = acc.to(torch.float32) * params.scale[None, :] + \
-            offset[None, :]
-        out = q.make_activation(activation)(out)
+        # integer products summed exactly in f64 (PyTorch has no
+        # integer matmul on CUDA)
+        acc = xq.to(torch.float64) @ params.wq.to(torch.float64)
+    # the exact integer rounded once to f32, as an int32 accumulator is
+    # where it does not overflow
+    out = acc.to(torch.float32) * params.scale[None, :] + offset[None, :]
+    out = q.make_activation(activation)(out)
     return out.reshape(*lead, params.d_out).to(x.dtype)
 
 

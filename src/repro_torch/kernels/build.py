@@ -34,7 +34,9 @@ ACTIVATION_CODES = {"linear": 0, "threshold": 1, "sigmoid": 2, "relu": 3,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's one entry point: (symbol, argtypes)
+_F = ctypes.c_float
+# C signature of each entry point: (symbol, argtypes). An entry point
+# lives in the library of its name, or of the name _LIBRARY gives.
 _ENTRY = {
     # x, x_bf16, gp, gn, scale, bias, out, B, R, C, rows, cols,
     # activation, partials, stream
@@ -45,7 +47,13 @@ _ENTRY = {
     # stream
     "int8_matmul": ("int8_matmul_launch",
                     (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # x (f32), w, scale, offset, out, B, K, N, activation, shift, inv,
+    # top, stream
+    "int8_matmul_dac": ("int8_matmul_dac_launch",
+                        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                         _P)),
 }
+_LIBRARY = {"int8_matmul_dac": "int8_matmul"}
 
 _lock = threading.Lock()
 _entries: Dict[str, Callable[..., int]] = {}
@@ -106,16 +114,22 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
+def library_of(name: str) -> str:
+    """The kernel library that holds entry point ``name``."""
+    return _LIBRARY.get(name, name)
+
+
 def entry(name: str):
-    """The ctypes entry point of kernel library ``name``, building and
-    loading it on first use. Every pointer and the stream are
-    ``c_void_p``; the function returns the launch's cudaError_t."""
+    """The ctypes entry point ``name`` (a key of ``_ENTRY``), building
+    and loading its library on first use. Every pointer and the stream
+    are ``c_void_p``; the function returns the launch's cudaError_t."""
     with _lock:
         fn = _entries.get(name)
         if fn is None:
-            build((name,))
+            lib = library_of(name)
+            build((lib,))
             symbol, argtypes = _ENTRY[name]
-            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            fn = getattr(ctypes.CDLL(str(library_path(lib))), symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _entries[name] = fn

@@ -70,16 +70,26 @@ def crossbar_mvm(x: torch.Tensor, gp: torch.Tensor, gn: torch.Tensor,
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
                 scale: Optional[torch.Tensor] = None,
                 offset: Optional[torch.Tensor] = None, *,
-                activation: str = "linear") -> torch.Tensor:
+                activation: str = "linear", dac=None) -> torch.Tensor:
     """int8 MAC array (the SRAM digital core datapath): (B, K) uint8 or
     int8 × (K, N) int8 → int32. With ``scale`` (per-neuron requantize)
     the fused epilogue act(acc·scale + offset) runs in the kernel and
-    the result is f32."""
+    the result is f32. With ``scale`` and ``dac`` = (lo, step, bits),
+    bits ≤ 8, x is (B, K) f32 analog inputs and the kernel forms their
+    DAC codes itself (the plain version: ``ref.dac_codes``, the uint8
+    cast, then the fused epilogue)."""
     if _on_cuda("int8_matmul", x):
-        return _i8.int8_matmul(x, w, scale, offset, activation=activation)
-    if x.dtype not in (torch.uint8, torch.int8) or w.dtype != torch.int8:
+        return _i8.int8_matmul(x, w, scale, offset, activation=activation,
+                               dac=dac)
+    if dac is not None:
+        _i8.check_dac(dac, x, scale)
+    if (dac is None and x.dtype not in (torch.uint8, torch.int8)) or \
+            w.dtype != torch.int8:
         raise ValueError(f"int8_matmul: takes uint8/int8 codes and int8 "
                          f"weights, got {x.dtype} and {w.dtype}")
+    if dac is not None:
+        return ref.int8_matmul_dac_ref(x, w, scale, offset, dac,
+                                       activation=activation)
     if scale is None:
         return ref.int8_matmul_ref(x, w)
     return ref.int8_matmul_fused_ref(x, w, scale, offset,

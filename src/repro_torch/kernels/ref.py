@@ -82,3 +82,22 @@ def int8_matmul_fused_ref(x: torch.Tensor, w: torch.Tensor,
     if offset is not None:
         y = y + offset.to(torch.float32)[None, :]
     return ACTIVATIONS[activation](y)
+
+
+def dac_codes(x: torch.Tensor, lo: float, step: float, bits: int
+              ) -> torch.Tensor:
+    """The SRAM core's input DAC: analog inputs → codes
+    0..2^bits−1 (f32 holding integers)."""
+    return torch.clamp(torch.round((x - lo) / step), 0, 2.0 ** bits - 1.0)
+
+
+def int8_matmul_dac_ref(x: torch.Tensor, w: torch.Tensor,
+                        scale: torch.Tensor,
+                        offset: Optional[torch.Tensor], dac, *,
+                        activation: str = "linear") -> torch.Tensor:
+    """The fused epilogue on f32 analog inputs ``x``: their DAC codes
+    (``dac`` = (lo, step, bits), bits ≤ 8) cast to uint8, then
+    :func:`int8_matmul_fused_ref`."""
+    codes = dac_codes(x, *dac).to(torch.uint8)
+    return int8_matmul_fused_ref(codes, w, scale, offset,
+                                 activation=activation)

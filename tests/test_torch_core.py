@@ -29,6 +29,7 @@ from repro_torch.core import quantization as tq
 from repro_torch.core.device import DEFAULT_DEVICE as TDEVICE
 from repro_torch.core.neural_core import CoreGeometry as TGeom
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as tref
 from repro_torch.variability import NoiseModel as TNoise
 
 torch.set_num_threads(1)
@@ -175,6 +176,29 @@ def test_digital_apply_matches_reference(use_kernel, activation):
                             bias=torch.from_numpy(b),
                             activation=activation, use_kernel=use_kernel)
     assert _rel(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("activation", ["linear", "threshold", "sigmoid"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_digital_apply_kernel_path_keeps_its_cpu_output(activation, bits):
+    """The kernel path hands the f32 inputs and the DAC's constants to
+    the fused int8 MAC; on the CPU that gives, to the bit, what the
+    path gave when it quantised first: the codes cast to uint8 through
+    the fused epilogue with offset + bias."""
+    w = _weights(12, 200, 100)
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.uniform(-1.3, 1.3, (3, 21, 200)).astype(
+        np.float32))
+    b = torch.from_numpy((rng.standard_normal(100) * 0.1).astype(
+        np.float32))
+    p = tcl.program_digital(torch.from_numpy(w), bits=bits)
+    codes = tcl.quantize_inputs(p, x.reshape(-1, 200)).to(torch.uint8)
+    want = tref.int8_matmul_fused_ref(codes, p.wq, p.scale, p.offset + b,
+                                      activation=activation)
+    got = tcl.digital_apply(p, x, bias=b, activation=activation,
+                            use_kernel=True)
+    assert got.shape == (3, 21, 100)
+    assert torch.equal(got.reshape(-1, 100), want)
 
 
 def test_digital_wide_codes_einsum_path_and_kernel_refusal():

@@ -1,6 +1,7 @@
 """The port on the card: each hand-written CUDA kernel against its plain
-PyTorch version at the deep app's shapes, and the deep-app stream
-through the kernels. Every test here carries the ``gpu`` marker and
+PyTorch version at the deep app's shapes (the int8 kernel's own DAC on
+f32 inputs against PyTorch's quantise-and-cast chain, to the bit), and
+the deep-app stream through the kernels. Every test here carries the ``gpu`` marker and
 skips (decided in a fixture) where no card is visible.
 
 It also streams a noisy, drifting deep-app chip and the paper's object
@@ -209,6 +210,95 @@ def test_gpu_int8_kernels_edges(cuda, B, K, N, signed):
     plain = tref.int8_matmul_fused_ref(x, w, scale, offset,
                                        activation="tanh")
     assert _rel(out.cpu(), plain.cpu()) <= 1e-6
+
+
+DAC = (-1.0, 2.0 / 255.0, 8)   # the deep app's 8-bit DAC: (lo, step, bits)
+DAC_SPECIAL = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 1.0, -1.0,
+                        3.0, -3.0, 1e30], np.float32)
+
+
+def _dac_inputs(seed, B, K):
+    """(B, K) f32 analog inputs for ``DAC``: uniform over a little more
+    than its range; a quarter of them exact half-code ties of x + (−lo)
+    in f32 then ÷ f32(step), × f32(1/step) or × 1/f32(step); a fiftieth
+    ±inf, NaN, ±0, the range's ends or far past them."""
+    lo, step, _ = DAC
+    near = np.float32((np.arange(256) + 0.5) * step + lo)
+    cand = (near.view(np.int32)[:, None] + np.arange(-8, 9)).astype(
+        np.int32).view(np.float32).ravel()
+    u = cand + np.float32(-lo)
+    ties = np.concatenate([
+        cand[y - np.floor(y) == 0.5]
+        for y in (u / np.float32(step), u * np.float32(1.0 / step),
+                  u * (np.float32(1.0) / np.float32(step)))])
+    assert ties.size >= 100
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(lo - 0.25, 0.25 - lo, B * K).astype(np.float32)
+    pick = rng.random(B * K)
+    x = np.where(pick < 0.25, rng.choice(ties, B * K), x)
+    x = np.where(pick > 0.98, rng.choice(DAC_SPECIAL, B * K), x)
+    return x.reshape(B, K)
+
+
+def _dac_against_the_chain(x, w, scale, offset):
+    """The kernel's own DAC on f32 ``x`` against the chain it replaces on
+    the card (PyTorch's CUDA ops quantise, the uint8 cast, the kernel
+    on codes): the same bits."""
+    codes = tref.dac_codes(x, *DAC).to(torch.uint8)
+    for act in ("linear", "threshold"):
+        want = ops.int8_matmul(codes, w, scale, offset, activation=act)
+        got = ops.int8_matmul(x, w, scale, offset, activation=act, dac=DAC)
+        assert torch.equal(got, want), act
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 127, 128, 129, 16384, 65536])
+@pytest.mark.parametrize("K,N", [(784, 200), (200, 100), (100, 10), (9, 4)])
+def test_gpu_int8_dac_kernel_equals_the_torch_chain(cuda, B, K, N):
+    """Ties, values out of range, ±inf and NaN; 16-byte copies where K
+    % 4 == 0, one input a copy for the 9-input apps; 64- and 256-column
+    tiles; ragged K (784 = 12.25 steps) and B edges."""
+    x = torch.from_numpy(_dac_inputs(18, B, K)).to(cuda)
+    _, w, scale, offset = _t(*_i8_operands(18, 1, K, N), device=cuda)
+    _dac_against_the_chain(x, w, scale, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [129, 4096])
+@pytest.mark.parametrize("K,N", [(784, 200), (100, 10)])
+def test_gpu_int8_dac_kernel_unaligned_view(cuda, B, K, N):
+    """An x 4 bytes past a 16-byte boundary (a view into a larger
+    buffer) takes one input a copy."""
+    flat = torch.from_numpy(_dac_inputs(19, 1, B * K + 1)).to(cuda)
+    x = flat.reshape(-1)[1:].view(B, K)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    _, w, scale, offset = _t(*_i8_operands(19, 1, K, N), device=cuda)
+    _dac_against_the_chain(x, w, scale, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4097, 65536])
+def test_gpu_sram_stream_forms_the_dac_codes_in_the_kernel(cuda, batch):
+    """A compiled deep-app SRAM chip streams f32 inputs into one fused
+    launch a layer, with the same outputs as the chain each layer ran
+    before the kernel formed the codes: quantise, the uint8 cast, the
+    kernel on codes."""
+    tspec = tcl.MLPSpec(DEEP)
+    params = tcl.mlp_init(tspec, generator=torch.Generator().manual_seed(0),
+                          device=cuda)
+    chip = compile_chip(tspec, params=params, system="digital", device=cuda)
+    x = torch.from_numpy(_dac_inputs(20, batch, DEEP[0])).to(cuda)
+    ops.reset_launch_counts()
+    out = chip.stream(x)
+    assert ops.launch_counts() == {"crossbar_mvm": 0, "int8_matmul_fused": 3,
+                                   "int8_matmul_raw": 0}
+    h = x
+    for layer in chip.plan:
+        p = layer.tiles
+        codes = tcl.quantize_inputs(p, h).to(torch.uint8)
+        h = ops.int8_matmul(codes, p.wq, p.scale, p.offset + layer.bias,
+                            activation=layer.activation)
+    assert torch.equal(out, h)
 
 
 @pytest.mark.gpu

@@ -217,6 +217,73 @@ def test_int8_plain_refuses_wide_codes():
         ops.int8_matmul(x, w, torch.ones(3))
 
 
+DAC = (-1.0, 2.0 / 255.0, 8)   # the deep app's 8-bit DAC: (lo, step, bits)
+
+
+def _dac_inputs(seed, B, K):
+    """(B, K) f32 analog inputs for ``DAC``: uniform over a little more
+    than its range; a quarter of them exact half-code ties of
+    (x − lo) / step in f32; a fiftieth ±inf or far out of range."""
+    lo, step, _ = DAC
+    near = np.float32((np.arange(256) + 0.5) * step + lo)
+    cand = (near.view(np.int32)[:, None] + np.arange(-8, 9)).astype(
+        np.int32).view(np.float32).ravel()
+    y = (cand - np.float32(lo)) / np.float32(step)
+    ties = cand[y - np.floor(y) == 0.5]
+    assert ties.size >= 100
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(lo - 0.25, 0.25 - lo, B * K).astype(np.float32)
+    pick = rng.random(B * K)
+    x = np.where(pick < 0.25, rng.choice(ties, B * K), x)
+    special = np.array([np.inf, -np.inf, 3.0, -3.0, 1e30], np.float32)
+    x = np.where(pick > 0.98, rng.choice(special, B * K), x)
+    return x.reshape(B, K)
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("K,N", [(9, 4), (100, 10), (200, 100), (784, 200)])
+def test_int8_plain_dac_equals_codes_then_fused(activation, K, N):
+    """f32 inputs with the DAC's constants give, on the CPU, the codes
+    of ``quantize_inputs`` cast to uint8 through the fused epilogue, to
+    the bit."""
+    from repro_torch.core import crossbar_layer as tcl
+    x = torch.from_numpy(_dac_inputs(3, 67, K))
+    _, w, scale, offset = _t(*_i8_operands(3, 1, K, N))
+    p = tcl.DigitalParams(w, scale, offset, DAC[1], DAC[2], K, N)
+    codes = tcl.quantize_inputs(p, x).to(torch.uint8)
+    want = tref.int8_matmul_fused_ref(codes, w, scale, offset,
+                                      activation=activation)
+    got = ops.int8_matmul(x, w, scale, offset, activation=activation,
+                          dac=tcl.dac_of(p))
+    assert torch.equal(got, want)
+
+
+def test_int8_dac_refusals():
+    """The DAC runs in the fused mode only, on f32 inputs, at 8 bits and
+    below: on the CPU as in the kernel's wrapper."""
+    x = torch.from_numpy(_dac_inputs(4, 2, 16))
+    _, w, scale, offset = _t(*_i8_operands(4, 1, 16, 3))
+    with pytest.raises(ValueError, match="needs scale"):
+        ops.int8_matmul(x, w, dac=DAC)
+    with pytest.raises(ValueError, match="float32"):
+        ops.int8_matmul(x.to(torch.uint8), w, scale, dac=DAC)
+    with pytest.raises(ValueError, match="1..8 bits"):
+        ops.int8_matmul(x, w, scale, dac=(-1.0, 2.0 / 4095, 12))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        i8_wrapper.int8_matmul(x, w, scale, offset, dac=DAC)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_dac_constants_are_exact_in_f32(bits):
+    """shift = −lo; at the DAC's steps 2/(2^bits − 1) the reciprocal
+    (2^bits − 1)/2 is exact in f32 (1/f32(step) is not), so the kernel's
+    product is the one PyTorch's CUDA div by the Python scalar takes."""
+    step = 2.0 / (2 ** bits - 1)
+    shift, inv, top = i8_wrapper.dac_constants((-1.0, step, bits))
+    assert (shift, inv, top) == (1.0, (2 ** bits - 1) / 2, 2 ** bits - 1)
+    assert float(np.float32(1.0) / np.float32(step)) != inv or bits == 1
+
+
 # ------------------------- dispatch and wrappers ---------------------- #
 def test_dispatch_refuses_other_devices():
     x = torch.empty((2, 1, 32), device="meta")
@@ -238,9 +305,13 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 
 
 def test_plain_versions_are_not_counted():
+    """Nor does the DAC mode add a counter: the three keys stay."""
     ops.reset_launch_counts()
     ops.crossbar_mvm(*_t(*_cb_operands(0, 4, 1, 1, 32, 16)[:4]))
     ops.int8_matmul(*_t(*_i8_operands(0, 4, 32, 16)[:2]))
+    _, w, scale, offset = _t(*_i8_operands(0, 1, 32, 16))
+    ops.int8_matmul(torch.from_numpy(_dac_inputs(0, 4, 32)), w, scale,
+                    offset, dac=DAC)
     assert ops.launch_counts() == {"crossbar_mvm": 0,
                                    "int8_matmul_fused": 0,
                                    "int8_matmul_raw": 0}

@@ -113,6 +113,8 @@ def test_memristor_stream_nests_tile_and_combine_under_each_call():
 
 
 def test_digital_stream_brackets_each_layers_dac_codes():
+    # on the 8-bit kernel path the kernel forms the codes, so there the
+    # span covers the DAC together with the MAC: still one a layer
     chip = _chip("digital")
     x = _x()
     want = chip.stream(x)
@@ -160,6 +162,30 @@ def test_stream_telemetry_keeps_the_counters_read():
     assert snap["counters"]["chip.compiles"] == 1
     assert set(snap["histograms"]) == {"chip.compile_s"}
     assert snap["gauges"] == {}
+
+
+@pytest.mark.parametrize("system,bits,per_call", [("digital", 8, 2),
+                                                  ("memristor", 8, 0),
+                                                  ("digital", 12, 0)])
+def test_dac_in_kernel_counts_the_layers_whose_codes_the_kernel_formed(
+        system, bits, per_call):
+    """One a layer on the 8-bit SRAM route; none where the codes are
+    formed apart (12-bit byte planes) or there is no DAC (1T1M)."""
+    spec = MLPSpec(DIMS)
+    params = mlp_init(spec, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    chip = compile_chip(spec, params=params, system=system,
+                        geom=GEOMS[system], weight_bits=bits, device="cpu")
+    chip.stream(_x())
+    tel = obs.configure()
+    try:
+        chip.stream(_x())
+        chip.stream(_x(rows=3))
+        snap = tel.metrics.snapshot()
+    finally:
+        obs.disable()
+    assert snap["counters"].get("chip.dac_in_kernel", 0) == 2 * per_call
+    assert snap["counters"]["chip.items_streamed"] == 9
 
 
 def test_metrics_only_telemetry_streams_without_spans():
