@@ -1,0 +1,8 @@
+"""route_ms.lm: device ms a decode step of the card's kernels and copies
+the host queued inside the ``lm.route`` spans (the router's grid, the
+selection and the grouping by held expert), summed over the MoE layers;
+from the traced run's profiled bursts (``generators/lm_decode.py``)."""
+
+
+def read(run):
+    return getattr(run.window, "readings", {}).get("lm.route")

@@ -100,13 +100,21 @@ class StreamLayer:
     ``drift`` (crossbar layers under a drifting NoiseModel only) holds
     the per-cell conductance relaxation rates, shaped like the tiles;
     streaming applies ``exp(-drift · age)`` to the tile grid. None
-    everywhere else — the plan is then exactly the ideal one."""
+    everywhere else — the plan is then exactly the ideal one.
+
+    ``groups`` > 1 (crossbar only): the grid holds that many
+    independent sub-layers of equal shape (an attention head's matrix
+    each), stacked along the row chunks: group g's input (its slice
+    of the layer input, padded to its row chunks) meets only its own
+    chunks, the combiner sums within a group, and the output is the
+    groups' outputs side by side."""
     tiles: Union[CrossbarParams, DigitalParams]
     combine: Tuple[torch.Tensor, ...]        # (fan_in,) f32 per level
     bias: torch.Tensor                       # (d_out,) f32
     activation: str
     levels: Tuple[Tuple[int, int], ...]
     drift: Optional[torch.Tensor] = None     # per-cell rates | None
+    groups: int = 1
 
 
 def _combiner_levels(n_chunks: int, geom: CoreGeometry,
@@ -141,10 +149,10 @@ def _combiner_levels(n_chunks: int, geom: CoreGeometry,
 
 def _layer_plan(lp, bias: torch.Tensor, activation: str,
                 device_model: DeviceModel, *, noise=None,
-                layer: int = 0) -> StreamLayer:
+                layer: int = 0, groups: int = 1) -> StreamLayer:
     bias = bias.to(torch.float32)
     if isinstance(lp, CrossbarParams):
-        R = lp.gp.shape[0]
+        R = lp.gp.shape[0] // groups
         geom = CoreGeometry(lp.geom_rows, lp.geom_cols)
         combine, levels = _combiner_levels(
             R, geom, device_model, lp.gp.device) if R > 1 else ((), ())
@@ -156,8 +164,27 @@ def _layer_plan(lp, bias: torch.Tensor, activation: str,
             # factor the activations ignore.
             drift = noise.drift_field(tuple(lp.gp.shape), layer=layer,
                                       device=lp.gp.device)
-        return StreamLayer(lp, combine, bias, activation, levels, drift)
+        return StreamLayer(lp, combine, bias, activation, levels, drift,
+                           groups)
     return StreamLayer(lp, (), bias, activation, ())
+
+
+def program_grouped(ws: torch.Tensor, *, geom: CoreGeometry,
+                    device_model: DeviceModel = DEFAULT_DEVICE
+                    ) -> CrossbarParams:
+    """G independent (d_in, d_out) matrices ``ws`` (G, d_in, d_out) on
+    one grid, exact encoding: each programmed alone
+    (``program_layer``) and the tile grids stacked along the row
+    chunks; ``d_in`` counts the padded rows of all the groups (a
+    grouped :class:`StreamLayer`'s input pads to them)."""
+    lps = [program_layer(w, geom=geom, device_model=device_model,
+                         quantize=False) for w in ws]
+    R = lps[0].gp.shape[0]
+    return CrossbarParams(torch.cat([lp.gp for lp in lps]).contiguous(),
+                          torch.cat([lp.gn for lp in lps]).contiguous(),
+                          torch.cat([lp.scale for lp in lps]).contiguous(),
+                          len(lps) * R * geom.rows, lps[0].d_out,
+                          geom.rows, geom.cols)
 
 
 def _crossbar_partials(p: CrossbarParams, x: torch.Tensor,
@@ -208,8 +235,16 @@ def _apply_stream_layer(layer: StreamLayer, x: torch.Tensor,
     decay = None
     if layer.drift is not None and age is not None:
         decay = torch.exp(-layer.drift * age)
+    G = layer.groups
+    if G > 1:
+        B = x.shape[0]
+        xg = x.reshape(B, G, -1)
+        x = torch.nn.functional.pad(
+            xg, (0, layer.tiles.d_in // G - xg.shape[2])).reshape(B, -1)
     parts = _crossbar_partials(layer.tiles, x, use_kernel,
                                decay, rec)                     # (B, R, d)
+    if G > 1:
+        parts = parts.reshape(-1, parts.shape[1] // G, parts.shape[2])
     if layer.combine:
         with rec.span("chip.combine"):
             for w, (groups, fan_in) in zip(layer.combine, layer.levels):
@@ -222,7 +257,8 @@ def _apply_stream_layer(layer: StreamLayer, x: torch.Tensor,
                                      w.to(parts.dtype))
     out = parts[:, 0, :]
     out = out + layer.bias[None, :]
-    return q.make_activation(layer.activation)(out)
+    out = q.make_activation(layer.activation)(out)
+    return out.reshape(-1, G * out.shape[1]) if G > 1 else out
 
 
 def stream_pipeline(plan: Tuple[StreamLayer, ...], x: torch.Tensor,

@@ -12,6 +12,7 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
+    LatentMoEConfig,
     ModelConfig,
     ShapeConfig,
     SHAPES,

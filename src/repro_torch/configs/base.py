@@ -110,6 +110,11 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def local_experts(self) -> int:
+        """The routed experts this device holds and computes."""
+        return self.held_experts or self.num_experts
+
+    @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
 
@@ -125,6 +130,46 @@ class ModelConfig:
         """
         from repro_torch.models import model as _model  # lazy; no cycle
         return _model.count_params(self, active_only=active_only)
+
+
+@dataclass(frozen=True)
+class LatentMoEConfig(ModelConfig):
+    """A DeepSeek-V3 style model (Moonlight-16B-A3B): latent attention,
+    leading dense layers, sigmoid-routed experts of which this device
+    may hold a share. The reference package has no such config."""
+    # the router's scoring: "softmax" (top-k of a softmax, capacity
+    # dispatch with drops) or "sigmoid_bias" (DeepSeek-V3's noaux_tc:
+    # top-k of sigmoid scores plus a correction bias that counts in the
+    # choice only; the chosen scores normalised and times
+    # ``routed_scaling``; no drops)
+    router: str = "softmax"
+    routed_scaling: float = 1.0
+    # expert parallelism: this device holds ``held_experts`` of the
+    # ``num_experts`` routed experts (0 = all), those of rank
+    # ``expert_rank`` (experts rank·held … rank·held + held − 1)
+    held_experts: int = 0
+    expert_rank: int = 0
+    # leading dense layers of an MoE stack (DeepSeek's
+    # first_k_dense_replace) and their FFN width
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    # attention kind: "gqa", or "mla" (DeepSeek's latent attention:
+    # K and V through a kv_lora_rank latent, a shared RoPE key of
+    # qk_rope_head_dim; q projected whole, q_lora_rank null)
+    attention: str = "gqa"
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+
+# Every config reads what LatentMoEConfig adds at its defaults, which
+# change nothing: class attributes of the base, not fields (the base's
+# fields stay the reference package's).
+for _f in dataclasses.fields(LatentMoEConfig):
+    if _f.name not in ModelConfig.__dataclass_fields__:
+        setattr(ModelConfig, _f.name, _f.default)
+del _f
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,11 @@
 """repro_torch.lm — language-model tenants on the crossbar fabric (port
 of ``repro.lm``).
 
-:func:`compile_lm` maps a dense transformer's per-layer linears onto
-programmed tile grids (the same program pipeline as the sensor apps;
-attention, rotary and KV-cache glue stay plain tensor code), and
+:func:`compile_lm` maps a dense transformer's per-layer linears, or a
+latent-attention MoE model's (Moonlight-16B-A3B:
+``configs.moonlight_16b_a3b``), onto programmed tile grids (the same
+program pipeline as the sensor apps; attention, rotary, routing and
+cache glue stay plain tensor code), and
 :class:`LMMember` serves the result as an ordinary ``deploy()`` tenant —
 one decode step per lane through the same keyed scheduler, per-app
 stats and Tables II–VI cost rows composing like any sensor app:

@@ -26,6 +26,29 @@ share the exact encoding, which is what lets
 1e-6 on the CPU. The int8 digital path (the MAC kernels) is not on this
 path. Host glue is forced to float32 compute for the same reason.
 
+Latent attention and held experts
+---------------------------------
+A ``family="moe"`` config with ``attention="mla"`` (DeepSeek-V3's
+block: Moonlight-16B-A3B) maps every static-weight product of both
+block kinds onto its own grid, through the same ``program_layer`` →
+``StreamLayer`` → ``_apply_stream_layer`` path:
+
+  attention  "wq_a" (q_proj and kv_a_proj side by side: one input),
+             "wkb" (each head's W_kbᵀ, nope → r) and "wvb" (each
+             head's W_vb, r → v) as GROUPED grids (``StreamLayer.groups``
+             = heads: the heads' matrices stacked along the row chunks,
+             one launch for all heads), "wo";
+  dense FFN  "w13" (w1 and w3 side by side), "w2";
+  MoE        "router", "shared_w13", "shared_w2", and each held
+             expert's "w13.e", "w2.e".
+
+The absorbed form (``models.attention``) keeps only the latent and
+the RoPE key in the cache and never expands K or V; the glue (norms,
+RoPE, the attention over the latent cache, routing and the grouping by
+expert) is ``models.transformer.LatentMoEStack``'s own code, handed
+these grids through its hooks. A decode writes the latent cache in
+place.
+
 Cost accounting, built lazily
 -----------------------------
 The per-layer linears double as ``(1, (d_in, d_out))`` net tuples for
@@ -48,13 +71,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.chip.compile import (CompiledChip, StreamLayer,
                                       _apply_stream_layer, _default_geom,
-                                      _layer_plan, compile_chip)
+                                      _layer_plan, compile_chip,
+                                      program_grouped)
 from repro_torch.core.crossbar_layer import program_layer
 from repro_torch.core.device import DEFAULT_DEVICE, DeviceModel
 from repro_torch.core.neural_core import CoreGeometry
@@ -67,6 +92,8 @@ from repro_torch.runtime import DeviceLike, resolve_device
 
 # the crossbar-mappable linears of one dense block, in dataflow order
 LM_LINEARS: Tuple[str, ...] = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+# a latent decode reads the cache's first slots in multiples of this
+KV_LEN_STEP = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,12 +128,40 @@ def _block_linears(cfg, p_l) -> Dict[str, torch.Tensor]:
 # --------------------------------------------------------------------- #
 # the mapped forward (glue + tile-grid projections)
 # --------------------------------------------------------------------- #
+def _latent_linears(cfg, p_l, moe: bool) -> Dict[str, torch.Tensor]:
+    """A latent (MLA) block's static-weight products (see the module
+    docstring): (d_in, d_out) matrices, and (heads, d_in, d_out) stacks
+    for the grouped "wkb" and "wvb"."""
+    a = p_l["attn"]
+    d, H, nope = cfg.d_model, cfg.num_heads, cfg.qk_nope_head_dim
+    wb = a["wkv_b"]                                  # (r, H, nope + v)
+    lin = {"wq_a": torch.cat([a["wq"].reshape(d, -1), a["wkv_a"]], dim=1),
+           "wkb": wb[..., :nope].permute(1, 2, 0),   # (H, nope, r)
+           "wvb": wb[..., nope:].permute(1, 0, 2),   # (H, r, v)
+           "wo": a["wo"].reshape(-1, d)}
+    m = p_l["mlp"]
+    if not moe:
+        lin["w13"] = torch.cat([m["w1"], m["w3"]], dim=1)
+        lin["w2"] = m["w2"]
+        return lin
+    lin["router"] = m["router"]
+    if cfg.num_shared_experts:
+        sh = m["shared"]
+        lin["shared_w13"] = torch.cat([sh["w1"], sh["w3"]], dim=1)
+        lin["shared_w2"] = sh["w2"]
+    for e in range(cfg.local_experts):
+        lin[f"w13.{e}"] = torch.cat([m["w1"][e], m["w3"][e]], dim=1)
+        lin[f"w2.{e}"] = m["w2"][e]
+    return lin
+
+
 def _projector(layer_plans: Dict[str, StreamLayer], use_kernel: bool):
+    """``project(name, x)``: x (..., d_in) through the layer's grid
+    ``name``."""
     def project(name: str, x: torch.Tensor) -> torch.Tensor:
-        B, S, d_in = x.shape
         out = _apply_stream_layer(layer_plans[name],
-                                  x.reshape(B * S, d_in), use_kernel)
-        return out.reshape(B, S, -1)
+                                  x.reshape(-1, x.shape[-1]), use_kernel)
+        return out.reshape(*x.shape[:-1], -1)
     return project
 
 
@@ -120,6 +175,28 @@ def _mlp_fn(layer_plans: Dict[str, StreamLayer], cfg, use_kernel: bool):
         out = _apply_stream_layer(layer_plans["w2"], h, use_kernel)
         return out.reshape(B, S, -1)
     return mlp
+
+
+def _latent_forward(clm: "CompiledLM", batch, mode: str, cache,
+                    use_kernel: bool, kv_len: Optional[int] = None,
+                    routes=None):
+    """``LatentMoEStack.apply`` with every layer's products on its
+    grids; spans ``lm.*`` on the LM's device when tracing; ``routes``
+    as the stack's."""
+    cfg, params = clm.cfg, clm.params
+    h = model_lib._embed_in(cfg, params, batch, torch.float32)
+    B, S = h.shape[0], h.shape[1]
+    positions = model_lib.positions_for(cfg, batch, B, S, mode, h.device)
+
+    def hooks(layer):
+        project = _projector(clm.plans[layer], use_kernel)
+        return project, project
+
+    h, cache, _ = tf.LatentMoEStack.apply(
+        params["stack"], cfg, h, positions=positions, mode=mode,
+        cache=cache, hooks=hooks, kv_len=kv_len,
+        rec=_obs_current().spans(clm.device), routes=routes)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), cache
 
 
 def _lm_forward(clm: "CompiledLM", batch, mode: str, cache,
@@ -185,29 +262,54 @@ class CompiledLM:
     def d_model(self) -> int:
         return self.cfg.d_model
 
+    @property
+    def latent(self) -> bool:
+        """An MLA/MoE model (``LatentMoEStack``)."""
+        return tf.get_stack(self.cfg) is tf.LatentMoEStack
+
     def init_cache(self, batch: int, cache_len: int,
                    dtype: torch.dtype = torch.bfloat16):
+        """The serving cache (``dtype``: its float type; bf16 rounds
+        what the exact f32 path computes)."""
         return model_lib.init_cache(self.cfg, batch, cache_len, dtype,
                                     device=self.device)
 
-    def prefill(self, tokens, *, use_kernel: bool = True):
+    def prefill(self, tokens, *, use_kernel: bool = True, routes=None):
         """tokens (B, S) int → (last-token logits (B, padded_vocab),
-        cache)."""
+        cache). ``routes`` (a latent model's): a list that gets each MoE
+        layer's chosen expert ids (B·S, top_k) appended."""
         toks = torch.as_tensor(tokens, device=self.device).long()
         if toks.dim() == 1:
             toks = toks[None, :]
-        h, cache = _lm_forward(self, {"tokens": toks}, "prefill", None,
-                               use_kernel)
+        batch = {"tokens": toks}
+        if self.latent:
+            h, cache = _latent_forward(self, batch, "prefill", None,
+                                       use_kernel, routes=routes)
+        else:
+            h, cache = _lm_forward(self, batch, "prefill", None, use_kernel)
         logits = model_lib._head(self.cfg, self.params,
                                  h[:, -1:, :])[:, 0, :]
         return logits, cache
 
-    def decode(self, cache, tokens, pos, *, use_kernel: bool = True):
+    def decode(self, cache, tokens, pos, *, use_kernel: bool = True,
+               routes=None):
         """tokens (B, 1) int, pos (B,) per-slot positions →
         (logits (B, padded_vocab), new_cache); ``cache`` is left as it
-        was."""
-        h, new_cache = _lm_forward(self, {"tokens": tokens, "pos": pos},
-                                   "decode", cache, use_kernel)
+        was, except a latent (MLA) cache, which is written in place
+        and returned. Positions held on the host (numpy, a list, a CPU
+        tensor) bound the latent slots read to the highest. ``routes``
+        as :meth:`prefill`'s."""
+        batch = {"tokens": tokens, "pos": pos}
+        if self.latent:
+            kv_len = None
+            if not torch.is_tensor(pos) or pos.device.type == "cpu":
+                kv_len = int(np.max(np.asarray(pos))) + 1
+                kv_len = -(-kv_len // KV_LEN_STEP) * KV_LEN_STEP
+            h, new_cache = _latent_forward(self, batch, "decode", cache,
+                                           use_kernel, kv_len, routes)
+        else:
+            h, new_cache = _lm_forward(self, batch, "decode", cache,
+                                       use_kernel)
         logits = model_lib._head(self.cfg, self.params, h)[:, 0, :]
         return logits, new_cache
 
@@ -244,8 +346,10 @@ def compile_lm(model, *, system: str = "memristor", geometry=None,
 
     The config's compute dtype is forced to float32 and
     ``decode_per_slot`` to True — the serving contract (see
-    :class:`CompiledLM`). Non-dense families raise: MoE expert routing
-    and SSM scans have no static per-layer matmul set to program.
+    :class:`CompiledLM`). Dense blocks and latent-attention MoE blocks
+    (``attention="mla"``, sigmoid-routed held experts: the module
+    docstring) are mapped; other families raise: softmax-routed
+    capacity MoE, the hybrid's and xLSTM's state scans.
     """
     if isinstance(model, TransformerParams):
         cfg, params = model.cfg, model.params
@@ -256,11 +360,15 @@ def compile_lm(model, *, system: str = "memristor", geometry=None,
             f"compile_lm takes a ModelConfig or TransformerParams "
             f"(got {type(model).__name__}); MLPs/net tuples belong to "
             f"repro_torch.chip.compile_chip")
-    if cfg.family != "dense":
+    latent = cfg.family == "moe" and cfg.attention == "mla"
+    if cfg.family != "dense" and not latent:
         raise NotImplementedError(
-            f"compile_lm maps dense transformer blocks only; family "
-            f"{cfg.family!r} (moe/ssm/hybrid expert routing and state "
-            f"scans have no static per-layer matmul set to program)")
+            f"compile_lm maps dense transformer blocks and latent-"
+            f"attention (MLA) MoE blocks only; family {cfg.family!r} "
+            f"(softmax capacity routing and the ssm/hybrid state scans "
+            f"have no mapping here)")
+    if latent:
+        tf.LatentMoEStack.check(cfg)
     system = normalize_system(system, context="compile_lm")
     dev = resolve_device(device)
     cfg = cfg.replace(compute_dtype="float32", decode_per_slot=True)
@@ -278,16 +386,27 @@ def compile_lm(model, *, system: str = "memristor", geometry=None,
     plans = []
     nets = []
     for layer in range(cfg.num_layers):
-        linears = _block_linears(cfg, tf.layer_slice(params["stack"], layer))
+        if latent:
+            linears = _latent_linears(
+                cfg, *tf.LatentMoEStack.layer(params["stack"], cfg, layer))
+        else:
+            linears = _block_linears(
+                cfg, tf.layer_slice(params["stack"], layer))
         layer_plans = {}
-        for name in LM_LINEARS:
-            w = linears[name].to(torch.float32)
-            lp = program_layer(w, geom=geom, device_model=device_model,
-                               quantize=False)
+        for name, w in linears.items():
+            w = w.to(torch.float32)
+            groups = 1 if w.dim() == 2 else w.shape[0]
+            if groups > 1:
+                lp = program_grouped(w, geom=geom, device_model=device_model)
+            else:
+                lp = program_layer(w, geom=geom, device_model=device_model,
+                                   quantize=False)
             layer_plans[name] = _layer_plan(
-                lp, torch.zeros((w.shape[1],), dtype=torch.float32,
-                                device=dev), "linear", device_model)
-            nets.append((1, (int(w.shape[0]), int(w.shape[1]))))
+                lp, torch.zeros((w.shape[-1],), dtype=torch.float32,
+                                device=dev), "linear", device_model,
+                groups=groups)
+            nets.extend([(1, (int(w.shape[-2]), int(w.shape[-1])))] *
+                        groups)
         plans.append(layer_plans)
 
     clm = CompiledLM(params=params, plans=tuple(plans), cfg=cfg,

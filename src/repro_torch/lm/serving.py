@@ -82,6 +82,14 @@ class LMMember:
     ``CompiledLM``'s device, its linears through the crossbar kernel
     when ``use_kernel`` (the router's default). ``mesh`` is the chip
     mesh the tenant is counted on (no state depends on it).
+    ``cache_dtype`` is the cache's float type (bf16 by default; an
+    exact f32 model states f32). After a step, ``logits`` holds its
+    (lanes, padded_vocab) logits on the device; the step's ids reach
+    the host in a page-locked buffer. ``route_log`` (a latent MoE
+    model) keeps, on the device, each lane's chosen experts for every
+    position it holds: ``routes`` (lanes, cache_len, MoE layers,
+    top_k) int16, written by the prefill and by each step, for a
+    checker that compares the routing itself.
     """
 
     d_in = 1                    # one token id per streamed item
@@ -90,7 +98,8 @@ class LMMember:
 
     def __init__(self, clm, *, lanes: int,
                  cache_len: int = DEFAULT_CACHE_LEN, n_chips: int = 1,
-                 mesh=None):
+                 mesh=None, cache_dtype: torch.dtype = torch.bfloat16,
+                 route_log: bool = False):
         if lanes < 1:
             raise ValueError("LMMember: needs lanes >= 1")
         if cache_len < 2:
@@ -102,15 +111,29 @@ class LMMember:
         self.n_chips = int(n_chips)
         self.n_local_chips = int(n_chips)
         self.mesh = mesh
+        self.cache_dtype = cache_dtype
+        if route_log and not getattr(clm, "latent", False):
+            raise ValueError("LMMember: route_log needs a latent MoE model")
+        self.route_log = route_log
         self.prefill_tokens = 0
         self.decode_steps = 0
+        self.logits: Optional[torch.Tensor] = None
         self._alloc(self.lanes)
 
     def _alloc(self, lanes: int) -> None:
-        self.cache = self.clm.init_cache(lanes, self.cache_len)
+        self.cache = self.clm.init_cache(lanes, self.cache_len,
+                                         self.cache_dtype)
         self._next_tok = np.zeros((lanes,), np.int32)
         self._pos = np.zeros((lanes,), np.int32)
         self._live: set = set()
+        self._ids = torch.empty((lanes,), dtype=torch.int64,
+                                pin_memory=self.clm.device.type == "cuda")
+        self.routes = None
+        if self.route_log:
+            cfg = self.cfg
+            self.routes = torch.zeros(
+                (lanes, self.cache_len, cfg.num_layers - cfg.first_k_dense,
+                 cfg.top_k), dtype=torch.int16, device=self.clm.device)
 
     # ---------------- lane lifecycle hooks -------------------------- #
     def on_admit(self, lane: int, st) -> None:
@@ -131,8 +154,11 @@ class LMMember:
             # fallback (deployments size cache_len >= prompt +
             # max_new_tokens)
             context = context[-self.cache_len:]
-        logits, one_cache = self.clm.prefill([context])
+        routes = [] if self.route_log else None
+        logits, one_cache = self.clm.prefill([context], routes=routes)
         kvcache.write_slot(self.cache, one_cache, lane)
+        if routes:
+            self.routes[lane, :len(context)] = torch.stack(routes, 1)
         self._next_tok[lane] = int(torch.argmax(logits[0]))
         self._pos[lane] = len(context)
         self._live.add(lane)
@@ -153,10 +179,18 @@ class LMMember:
         at its own position) stages the next."""
         out = self._next_tok.astype(np.float32)[:, None]
         t0 = time.perf_counter()
+        routes = [] if self.route_log else None
         logits, self.cache = self.clm.decode(
             self.cache, self._next_tok[:, None], self._pos,
-            use_kernel=use_kernel)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+            use_kernel=use_kernel, routes=routes)
+        self.logits = logits
+        if routes:
+            slot = torch.as_tensor(self._pos % self.cache_len,
+                                   device=logits.device).long()
+            self.routes[torch.arange(len(slot), device=logits.device),
+                        slot] = torch.stack(routes, 1)
+        nxt = self._ids.copy_(torch.argmax(logits, dim=-1)).numpy().astype(
+            np.int32)
         dt = time.perf_counter() - t0
         for lane in self._live:
             self._next_tok[lane] = nxt[lane]

@@ -26,7 +26,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init, softcap
+from repro_torch.models.layers import (apply_rope, apply_rope_pairs,
+                                       dense_init, rms_norm, softcap)
+from repro_torch.obs.core import NULL_RECORDER
 from repro_torch.sharding import (axis_rules, blockwise, current_mesh,
                                   from_local_part, gather_seq, local_part,
                                   shard)
@@ -352,3 +354,166 @@ def attn_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     else:
         out = project("wo", out.reshape(B, S, H * dh))
     return out, new_cache
+
+
+# --------------------------------------------------------------------- #
+# MLA: DeepSeek's latent attention, absorbed
+# --------------------------------------------------------------------- #
+# What a position leaves in the cache is the normed latent c (r =
+# kv_lora_rank values) and the rotated RoPE key (qk_rope_head_dim), side
+# by side in one leaf ``ckv``: 576 values a position a layer at the
+# published widths, where GQA with 16 KV heads of 128 would hold 4,096.
+# K and V are never expanded. With W_kb (r → nope) and W_vb (r → v) the
+# two halves of a head's kv_b_proj,
+#
+#   q_nope · (c W_kb) = (q_nope W_kbᵀ) · c     (the query taken to r)
+#   Σ_t w_t (c_t W_vb) = (Σ_t w_t c_t) W_vb    (the sum taken in r)
+#
+# so scores and the weighted sum run over the latent cache itself, and
+# each head's W_kbᵀ (nope → r) and W_vb (r → v) is applied once a query.
+def mla_init(generators, cfg, dtype: torch.dtype, *,
+             device: torch.device) -> Dict[str, torch.Tensor]:
+    """``generators``: four ``torch.Generator`` for wq, wkv_a, wkv_b,
+    wo. Layouts: wq (d, H, nope + rope) (q_proj, q_lora_rank null);
+    wkv_a (d, r + rope) (kv_a_proj_with_mqa: the latent, then the RoPE
+    key); kv_norm (r,) (kv_a_layernorm); wkv_b (r, H, nope + v)
+    (kv_b_proj: each head's k_nope, then its v); wo (H, v, d)."""
+    d, H = cfg.d_model, cfg.num_heads
+    r, nope = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    rope, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
+    gq, ga, gb, go = generators
+    return {
+        "wq": dense_init(gq, (d, H, nope + rope), dtype, fan_in=d,
+                         device=device),
+        "wkv_a": dense_init(ga, (d, r + rope), dtype, fan_in=d,
+                            device=device),
+        "kv_norm": torch.ones((r,), dtype=dtype, device=device),
+        "wkv_b": dense_init(gb, (r, H, nope + dv), dtype, fan_in=r,
+                            device=device),
+        "wo": dense_init(go, (H, dv, d), dtype, fan_in=H * dv,
+                         device=device),
+    }
+
+
+def mla_specs(cfg) -> Dict:
+    return {"wq": ("embed", "heads", None), "wkv_a": ("embed", None),
+            "kv_norm": (None,), "wkv_b": (None, "heads", None),
+            "wo": ("heads", None, "embed")}
+
+
+def mla_cache_width(cfg) -> int:
+    """Values a position a layer holds in the latent cache ``ckv``."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("MLA keeps its latent cache in the "
+                                  "caller's float dtype")
+    return cfg.kv_lora_rank + cfg.qk_rope_head_dim
+
+
+def mla_cache_specs(cfg) -> Dict:
+    return {"ckv": ("batch", "act_kvseq", None)}
+
+
+def mla_projector(p: Dict, cfg):
+    """The plain ``project(name, x)`` of an MLA layer: "wq_a" (q_proj
+    and kv_a_proj side by side: they read the same input), "wkb" (each
+    head's W_kbᵀ, nope → r), "wvb" (each head's W_vb, r → v), "wo".
+    ``x`` is (B, S, d_in), heads flattened into the last dim."""
+    H, r, nope = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    dv = cfg.v_head_dim
+
+    def project(name: str, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        if name == "wq_a":
+            q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+            return torch.cat([q.flatten(2),
+                              torch.matmul(x, p["wkv_a"].to(dt))], dim=-1)
+        wb = p["wkv_b"].to(dt)
+        if name == "wkb":
+            return torch.einsum("bshn,rhn->bshr", x.unflatten(-1, (H, nope)),
+                                wb[..., :nope]).flatten(2)
+        if name == "wvb":
+            return torch.einsum("bshr,rhv->bshv", x.unflatten(-1, (H, r)),
+                                wb[..., nope:]).flatten(2)
+        if name == "wo":
+            return torch.einsum("bshv,hvd->bsd", x.unflatten(-1, (H, dv)),
+                                p["wo"].to(dt))
+        raise KeyError(name)
+    return project
+
+
+def _latent_attend(qc: torch.Tensor, keys: torch.Tensor,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor, r: int,
+                   scale: float, q_chunk: int = 512) -> torch.Tensor:
+    """qc (B, S, H, r + rope): [q_nope W_kbᵀ, rotated q_pe]; keys
+    (B, T, r + rope): [c, rotated k_pe]; positions (B, S) / (B, T)
+    (negative: an empty slot). → the weighted sums of the latents
+    (B, S, H, r), in f32, the queries in chunks of ``q_chunk``."""
+    f32 = torch.float32
+    B, S, H, C = qc.shape
+    kf = keys.to(f32)
+    kt = kf.transpose(1, 2)
+    outs = []
+    for i in range(0, S, q_chunk):
+        qb = qc[:, i:i + q_chunk].to(f32)
+        s = qb.shape[1]
+        scores = torch.matmul(qb.reshape(B, s * H, C), kt) * scale
+        qp = q_pos[:, i:i + q_chunk, None]
+        mask = (k_pos[:, None, :] <= qp) & (k_pos[:, None, :] >= 0)
+        mask = mask[:, :, None, :].expand(B, s, H, -1).reshape(B, s * H, -1)
+        w = _masked_softmax(scores, mask)
+        outs.append(torch.matmul(w, kf[..., :r]).reshape(B, s, H, r))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def mla_apply(p: Dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
+              mode: str, cache: Optional[Dict] = None,
+              kv_len: Optional[int] = None, project=None,
+              rec=NULL_RECORDER) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (B, S, d); positions (B, S). ``project(name, x)`` runs the
+    layer's four static-weight products (:func:`mla_projector` when
+    None; ``repro_torch.lm`` puts them on tile grids); the RoPE, the
+    latent norm, the cache and the attention over it stay here.
+
+    mode "train"/"prefill" attend within the sequence (prefill returns
+    its ``ckv`` as the cache); "decode" (S == 1, every lane at its own
+    position) writes each lane's ``ckv`` into ``cache`` IN PLACE and
+    returns that same cache: the latent cache is the deployment's
+    largest tensor, and a copy a step would double it. ``kv_len``, where
+    the caller knows every lane's position is below it, bounds the
+    slots read. ``rec`` brackets the attention over the latents
+    (``lm.mla``). Returns (out (B, S, d), cache)."""
+    B, S, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if project is None:
+        project = mla_projector(p, cfg)
+    q, kv = project("wq_a", x).split([H * (nope + rope), r + rope], dim=-1)
+    q_nope, q_pe = q.reshape(B, S, H, nope + rope).split([nope, rope], -1)
+    c = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope_pairs(kv[..., None, r:], positions,
+                            cfg.rope_theta)[..., 0, :]
+    q_pe = apply_rope_pairs(q_pe, positions, cfg.rope_theta)
+    q_lat = project("wkb", q_nope.reshape(B, S, H * nope))
+    qc = torch.cat([q_lat.reshape(B, S, H, r), q_pe], dim=-1)
+    ckv = torch.cat([c, k_pe], dim=-1)
+    scale = (nope + rope) ** -0.5
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("mla_apply: decode takes one token a lane "
+                             "and a cache")
+        ring = cache["ckv"]
+        T = ring.shape[1]
+        pos_b = positions[:, 0]
+        ring[torch.arange(B, device=x.device), (pos_b % T).long()] = \
+            ckv[:, 0].to(ring.dtype)
+        n = T if kv_len is None else max(1, min(T, int(kv_len)))
+        keys = ring[:, :n]
+        k_pos = _ring_positions(pos_b, T)[:, :n]
+        new_cache = cache
+    else:
+        keys, k_pos = ckv, positions
+        new_cache = {"ckv": ckv} if mode == "prefill" else None
+    with rec.span("lm.mla"):
+        o_lat = _latent_attend(qc, keys, positions, k_pos, r, scale)
+    o = project("wvb", o_lat.to(x.dtype).reshape(B, S, H * r))
+    return project("wo", o), new_cache

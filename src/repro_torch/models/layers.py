@@ -116,6 +116,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor,
+                     theta: float) -> torch.Tensor:
+    """RoPE on interleaved pairs, as DeepSeek-V3's modeling code applies
+    it: the pairs (x[2i], x[2i+1]) are rotated by position · θ^(−2i/d),
+    and the result is laid out in halves (the rotated evens, then the
+    rotated odds), so q and k dot as under the interleaved rotation.
+    Shapes as :func:`apply_rope`."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------- #
 # MLP (SwiGLU / GeGLU)
 # --------------------------------------------------------------------- #

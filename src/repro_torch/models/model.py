@@ -265,6 +265,78 @@ def _block_params(cfg) -> int:
     return block
 
 
+def _latent_params(cfg, active_only: bool) -> int:
+    """The latent MoE stack's layers: MLA in each, then the dense FFN or
+    the router, its bias, the held experts (the ``top_k`` a token visits
+    with ``active_only``) and the shared experts."""
+    d, H = cfg.d_model, cfg.num_heads
+    r, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    nope, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    att = (d * H * (nope + rope) + d * (r + rope) + r + r * H * (nope + dv)
+           + H * dv * d + 2 * d)
+    nd = cfg.first_k_dense
+    experts = cfg.top_k if active_only else cfg.local_experts
+    moe = (d * cfg.num_experts + cfg.num_experts
+           + 3 * d * cfg.d_ff * (experts + cfg.num_shared_experts))
+    return (cfg.num_layers * att + nd * 3 * d * cfg.dense_d_ff
+            + (cfg.num_layers - nd) * moe)
+
+
+def params_from_layers(cfg, ref: Dict, *,
+                       device: DeviceLike = None) -> Params:
+    """A latent MoE model's parameters in the published per-layer layout
+    (what ``reference_moonlight.make_params`` draws: ``embed`` (V, d),
+    ``lm_head`` (d, V), ``final_norm``, and a list ``layers`` of
+    ``input_norm``, ``post_norm``, ``q_proj`` (d, H·(nope + rope)),
+    ``kv_a_proj`` (d, r + rope), ``kv_norm``, ``kv_b_proj`` (r,
+    H·(nope + v)), ``o_proj`` (H·v, d) and ``mlp`` {w1, w3, w2} or
+    ``moe`` {gate, gate_bias, w1, w3, w2 (held, ...), shared}) → this
+    package's tree (:class:`transformer.LatentMoEStack`), copied onto
+    ``device`` in ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    dt = pdtype(cfg)
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+
+    def t(x):
+        return torch.as_tensor(x).to(device=dev, dtype=dt)
+
+    def block(lay):
+        p = {"attn": {"wq": t(lay["q_proj"]).reshape(d, H, nope + rope),
+                      "wkv_a": t(lay["kv_a_proj"]),
+                      "kv_norm": t(lay["kv_norm"]),
+                      "wkv_b": t(lay["kv_b_proj"]).reshape(
+                          cfg.kv_lora_rank, H, -1),
+                      "wo": t(lay["o_proj"]).reshape(H, cfg.v_head_dim, d)},
+             "attn_norm": t(lay["input_norm"]),
+             "mlp_norm": t(lay["post_norm"])}
+        if "moe" in lay:
+            m = lay["moe"]
+            p["mlp"] = {"router": t(m["gate"]),
+                        "router_bias": t(m["gate_bias"]),
+                        "w1": t(m["w1"]), "w3": t(m["w3"]), "w2": t(m["w2"]),
+                        "shared": {k: t(v) for k, v in m["shared"].items()}}
+        else:
+            p["mlp"] = {k: t(v) for k, v in lay["mlp"].items()}
+        return p
+
+    layers = [block(lay) for lay in ref["layers"]]
+    nd = cfg.first_k_dense
+    kinds = [("moe" in lay) for lay in ref["layers"]]
+    if len(layers) != cfg.num_layers or kinds != [
+            i >= nd for i in range(len(kinds))]:
+        raise ValueError(f"params_from_layers: {len(layers)} layers do not "
+                         f"match {cfg.num_layers} with {nd} dense first")
+    stack = {}
+    if nd:
+        stack["dense"] = tf._stack_trees(layers[:nd])
+    if cfg.num_layers > nd:
+        stack["moe"] = tf._stack_trees(layers[nd:])
+    return {"embed": {"table": t(ref["embed"])}, "stack": stack,
+            "final_norm": t(ref["final_norm"]),
+            "lm_head": {"w": t(ref["lm_head"])}}
+
+
 def _mamba_params(cfg) -> int:
     """One Mamba2 block's parameters and its pre-norm."""
     d, d_in, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
@@ -296,12 +368,14 @@ def count_params(cfg, active_only: bool = False) -> int:
         trunk = cfg.num_layers * _mamba_params(cfg) + _block_params(cfg)
     elif stack is tf.XLSTMStack:
         trunk = cfg.num_layers // cfg.slstm_period * _xlstm_group_params(cfg)
+    elif stack is tf.LatentMoEStack:
+        trunk = _latent_params(cfg, active_only)
     else:
         trunk = cfg.num_layers * _block_params(cfg)
     total = cfg.padded_vocab * d + trunk + d
     if not cfg.tie_embeddings:
         total += d * cfg.padded_vocab
-    if active_only and cfg.num_experts:
+    if active_only and cfg.num_experts and stack is not tf.LatentMoEStack:
         per_expert = 3 * cfg.d_model * cfg.d_ff
         total -= cfg.num_layers * (cfg.num_experts - cfg.top_k) * per_expert
     return int(total)

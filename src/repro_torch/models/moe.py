@@ -53,13 +53,18 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from repro_torch.models.layers import act_fn, dense_init
+from repro_torch.models.layers import act_fn, dense_init, embed_init
+from repro_torch.obs.core import NULL_RECORDER
+from repro_torch.obs.core import current as _obs_current
 from repro_torch.sharding import (current_mesh, from_local_part, gather_seq,
                                   local_part, reshape, shard, unshard)
 
 # the generator order of ``moe_init``'s leaves
 MOE_LEAVES = ("router", "w1", "w3", "w2", "shared_w1", "shared_w3",
-              "shared_w2")
+              "shared_w2", "router_bias")
+# std of the seeded sigmoid router's correction bias (a trained model's
+# is learnt; its values move the choice, not the arithmetic)
+ROUTER_BIAS_STD = 0.05
 
 
 def _round_up(x: int, m: int) -> int:
@@ -74,14 +79,21 @@ def moe_init(generators: Sequence[torch.Generator], cfg,
     (E, d, f), w2 (E, f, d), shared w1/w3 (d, f·n_shared), w2
     (f·n_shared, d)."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    El = cfg.local_experts
     g = dict(zip(MOE_LEAVES, generators))
     p = {
         "router": dense_init(g["router"], (d, E), dtype, fan_in=d,
                              device=device),
-        "w1": dense_init(g["w1"], (E, d, f), dtype, fan_in=d, device=device),
-        "w3": dense_init(g["w3"], (E, d, f), dtype, fan_in=d, device=device),
-        "w2": dense_init(g["w2"], (E, f, d), dtype, fan_in=f, device=device),
+        "w1": dense_init(g["w1"], (El, d, f), dtype, fan_in=d,
+                         device=device),
+        "w3": dense_init(g["w3"], (El, d, f), dtype, fan_in=d,
+                         device=device),
+        "w2": dense_init(g["w2"], (El, f, d), dtype, fan_in=f,
+                         device=device),
     }
+    if cfg.router == "sigmoid_bias":
+        p["router_bias"] = embed_init(g["router_bias"], (E,), dtype,
+                                      device=device) * ROUTER_BIAS_STD
     if cfg.num_shared_experts:
         fs = f * cfg.num_shared_experts
         p["shared"] = {
@@ -103,6 +115,8 @@ def moe_specs(cfg) -> Dict:
     if cfg.num_shared_experts:
         s["shared"] = {"w1": ("embed", "ff"), "w3": ("embed", "ff"),
                        "w2": ("ff", "embed")}
+    if cfg.router == "sigmoid_bias":
+        s["router_bias"] = (None,)
     return s
 
 
@@ -277,3 +291,122 @@ def _moe_grouped(p: Dict, cfg, xg: torch.Tensor
     G_all = G if current_mesh() is None else y.shape[0]
     dropped = 1.0 - n_valid / max(G_all * Tg * K, 1)
     return y, {"aux_loss": aux_loss, "drop_frac": dropped.to(torch.float32)}
+
+
+# --------------------------------------------------------------------- #
+# sigmoid-plus-bias routing over a held share of the experts
+# --------------------------------------------------------------------- #
+def route_sigmoid(logits: torch.Tensor, bias: torch.Tensor, cfg
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's noaux_tc selection (one group) from the router's
+    logits (..., E) f32: scores σ(logit); the top ``cfg.top_k`` of
+    score + ``bias`` (a stable descending sort: on ties the lower
+    expert index first); the weights are the chosen *scores*, without
+    the bias, over their sum + 1e-20, times ``cfg.routed_scaling``.
+    Returns (weights (..., K) f32, expert ids (..., K) int64, best
+    first, and the router gap (...): the K-th choice value less the
+    (K+1)-th, where a rounding can swap the last expert in)."""
+    f32 = torch.float32
+    K = cfg.top_k
+    scores = torch.sigmoid(logits.to(f32))
+    vals, order = torch.sort(scores + bias.to(f32), dim=-1,
+                             descending=True, stable=True)
+    ids = order[..., :K]
+    w = torch.gather(scores, -1, ids)
+    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+    gap = vals[..., K - 1] - vals[..., K] if vals.shape[-1] > K else \
+        torch.full(vals.shape[:-1], float("inf"), device=vals.device)
+    return w, ids, gap
+
+
+def held_projector(p: Dict, cfg):
+    """The plain ``project(name, x)`` of a held-expert MoE layer:
+    "router" (d → E, f32), "shared_w13" / "shared_w2" (the shared
+    experts' GLU: w1 and w3 side by side, then w2), "w13.e" / "w2.e"
+    (held expert e, 0-based among the held)."""
+    def project(name: str, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        if name == "router":
+            return torch.matmul(x.to(torch.float32),
+                                p["router"].to(torch.float32))
+        if name.startswith("shared_"):
+            sh = p["shared"]
+            w = torch.cat([sh["w1"], sh["w3"]], dim=1) \
+                if name == "shared_w13" else sh["w2"]
+        else:
+            kind, e = name.split(".")
+            e = int(e)
+            w = torch.cat([p["w1"][e], p["w3"][e]], dim=1) \
+                if kind == "w13" else p["w2"][e]
+        return torch.matmul(x, w.to(dt))
+    return project
+
+
+def glu(project, cfg, name: str, x: torch.Tensor, w2: str) -> torch.Tensor:
+    """A GLU through ``project``: ``name`` gives w1's and w3's outputs
+    side by side, ``w2`` the down product of act(h1) · h3."""
+    h1, h3 = project(name, x).chunk(2, dim=-1)
+    return project(w2, act_fn(cfg.act)(h1) * h3)
+
+
+def held_moe_apply(p: Dict, cfg, x: torch.Tensor, *, project=None,
+                   rec=NULL_RECORDER, routes=None) -> torch.Tensor:
+    """One expert-parallel rank's MoE layer (drop-free): every token is
+    routed over all ``cfg.num_experts`` (:func:`route_sigmoid`); this
+    rank holds experts lo … lo + held − 1 (``cfg.expert_rank``,
+    ``cfg.local_experts``) and adds, for the tokens routed to them,
+    their weighted outputs to the shared experts' (which every rank
+    computes alike). What the other ranks' experts would add is theirs.
+
+    The step's (token, choice) pairs are grouped by held expert (a
+    stable sort), each expert runs once on its own rows, and the
+    weighted results are scatter-added. The group sizes come to the
+    host (one synchronise a layer): each expert's products take their
+    rows as a shape. ``project(name, x)``: :func:`held_projector` when
+    None; ``repro_torch.lm`` puts every product on tile grids. ``rec``
+    brackets ``lm.route`` (router, selection, grouping), ``lm.shared``
+    and ``lm.experts`` (the held experts' products, weighting and
+    scatter); the counter ``lm.expert_assignments`` adds the pairs the
+    held experts computed, on the card. ``routes``, a list, gets the
+    step's chosen expert ids (B·S, K) int16 appended. x (B, S, d) →
+    (B, S, d)."""
+    B, S, d = x.shape
+    T, K = B * S, cfg.top_k
+    El = cfg.local_experts
+    lo = cfg.expert_rank * El
+    if project is None:
+        project = held_projector(p, cfg)
+    xt = x.reshape(T, d)
+    with rec.span("lm.route"):
+        w, ids, _ = route_sigmoid(project("router", xt), p["router_bias"],
+                                  cfg)
+        if routes is not None:
+            routes.append(ids.to(torch.int16))
+        local = ids - lo
+        local = torch.where((local >= 0) & (local < El), local,
+                            El).reshape(-1)
+        order = torch.argsort(local, stable=True)
+        counts = torch.bincount(local, minlength=El + 1)[:El]
+        rows = order // K
+        weights = w.reshape(-1)[order]
+        sizes = counts.tolist()
+    tel = _obs_current()
+    if tel.active:
+        tel.metrics.counter("lm.expert_assignments").inc(counts.sum())
+    if cfg.num_shared_experts:
+        with rec.span("lm.shared"):
+            y = glu(project, cfg, "shared_w13", xt, "shared_w2")
+    else:
+        y = torch.zeros_like(xt)
+    with rec.span("lm.experts"):
+        start = 0
+        for e, n in enumerate(sizes):
+            if not n:
+                continue
+            tok = rows[start:start + n]
+            ye = glu(project, cfg, f"w13.{e}", xt.index_select(0, tok),
+                      f"w2.{e}")
+            y.index_add_(0, tok, ye * weights[start:start + n, None]
+                         .to(ye.dtype))
+            start += n
+    return y.reshape(B, S, d)

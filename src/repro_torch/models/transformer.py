@@ -59,6 +59,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (mlp_apply, mlp_init, mlp_specs,
                                        pdtype, rms_norm)
+from repro_torch.obs.core import NULL_RECORDER
 from repro_torch.sharding import carry_rules, shard
 
 # one generator per parameter leaf of a block, keyed by these codes; an
@@ -273,6 +274,145 @@ class MoEStack(DenseStack):
 
 
 # ===================================================================== #
+# DeepSeek-V3 style: leading dense layers, then MoE; MLA throughout
+# ===================================================================== #
+def ffn_projector(p: Dict):
+    """The plain ``project(name, x)`` of a dense GLU FFN: "w13" (w1 and
+    w3 side by side), "w2"."""
+    def project(name: str, x: torch.Tensor) -> torch.Tensor:
+        w = torch.cat([p["w1"], p["w3"]], dim=1) if name == "w13" \
+            else p["w2"]
+        return torch.matmul(x, w.to(x.dtype))
+    return project
+
+
+class LatentMoEStack:
+    """``cfg.first_k_dense`` dense layers (FFN ``cfg.dense_d_ff``), then
+    MoE layers of sigmoid-routed held experts
+    (``moe.held_moe_apply``); every layer's attention is MLA
+    (``attention.mla_apply``). Params ``{"dense": (first_k_dense, ...),
+    "moe": (num_layers − first_k_dense, ...)}`` (a kind with no layer
+    has no key); cache ``{"ckv": (layers, B, T, r + rope)}``.
+
+    ``apply``'s ``hooks(layer) -> (project, ffn)`` hands a layer's
+    attention products and its FFN or MoE products to another backend
+    (``repro_torch.lm`` maps them onto tile grids); None: plain
+    products. A decode writes the latent cache in place and returns
+    it. ``routes``, a list, gets each MoE layer's chosen expert ids
+    (B·S, K) appended, in layer order."""
+
+    @staticmethod
+    def check(cfg) -> None:
+        if cfg.attention != "mla" or cfg.router != "sigmoid_bias":
+            raise NotImplementedError(
+                "the latent MoE stack runs MLA with sigmoid-routed experts")
+        if not 0 <= cfg.first_k_dense <= cfg.num_layers:
+            raise ValueError(f"first_k_dense {cfg.first_k_dense} of "
+                             f"{cfg.num_layers} layers")
+
+    @staticmethod
+    def layer(p: Dict, cfg, layer: int):
+        """(layer ``layer``'s params, whether it is an MoE layer)."""
+        nd = cfg.first_k_dense
+        if layer < nd:
+            return layer_slice(p["dense"], layer), False
+        return layer_slice(p["moe"], layer - nd), True
+
+    @classmethod
+    def init(cls, generator: Callable[..., torch.Generator], cfg,
+             device: torch.device) -> Dict:
+        """``generator(layer, leaf)``, leaves as ``_block_init``'s."""
+        cls.check(cfg)
+        d, dt = cfg.d_model, pdtype(cfg)
+
+        def block(layer: int, moe: bool) -> Dict:
+            def gen(i):
+                return generator(layer, i)
+            p = {"attn": attn.mla_init([gen(i) for i in range(4)], cfg, dt,
+                                       device=device),
+                 "attn_norm": torch.ones((d,), dtype=dt, device=device),
+                 "mlp_norm": torch.ones((d,), dtype=dt, device=device)}
+            if moe:
+                p["mlp"] = moe_mod.moe_init(
+                    [gen(len(_LEAVES) + j)
+                     for j in range(len(moe_mod.MOE_LEAVES))], cfg, dt,
+                    device=device)
+            else:
+                p["mlp"] = mlp_init([gen(i) for i in (4, 5, 6)], d,
+                                    cfg.dense_d_ff, dt, device=device)
+            return p
+
+        nd, L = cfg.first_k_dense, cfg.num_layers
+        out = {}
+        if nd:
+            out["dense"] = _stack_trees([block(i, False) for i in range(nd)])
+        if L > nd:
+            out["moe"] = _stack_trees([block(i, True) for i in range(nd, L)])
+        return out
+
+    @classmethod
+    def specs(cls, cfg):
+        def block(moe):
+            return {"attn": attn.mla_specs(cfg), "attn_norm": (None,),
+                    "mlp_norm": (None,),
+                    "mlp": moe_mod.moe_specs(cfg) if moe else mlp_specs()}
+        out = {}
+        if cfg.first_k_dense:
+            out["dense"] = block(False)
+        if cfg.num_layers > cfg.first_k_dense:
+            out["moe"] = block(True)
+        return out
+
+    @classmethod
+    def apply(cls, p, cfg, h, *, positions, mode,
+              cache: Optional[Dict] = None, hooks=None,
+              kv_len: Optional[int] = None, rec=NULL_RECORDER,
+              routes=None):
+        if mode == "train":
+            raise NotImplementedError("the latent MoE stack serves; it "
+                                      "does not train")
+        caches = []
+        for layer in range(cfg.num_layers):
+            p_l, moe = cls.layer(p, cfg, layer)
+            project, ffn = hooks(layer) if hooks is not None else \
+                (None, None)
+            a_in = rms_norm(h, p_l["attn_norm"], cfg.norm_eps)
+            a_out, c_new = attn.mla_apply(
+                p_l["attn"], cfg, a_in, positions=positions, mode=mode,
+                cache=None if cache is None else layer_slice(cache, layer),
+                kv_len=kv_len, project=project, rec=rec)
+            h = h + a_out
+            m_in = rms_norm(h, p_l["mlp_norm"], cfg.norm_eps)
+            if moe:
+                m_out = moe_mod.held_moe_apply(p_l["mlp"], cfg, m_in,
+                                               project=ffn, rec=rec,
+                                               routes=routes)
+            else:
+                m_out = moe_mod.glu(ffn or ffn_projector(p_l["mlp"]), cfg,
+                                    "w13", m_in, "w2")
+            h = h + m_out
+            caches.append(c_new)
+        if mode == "decode":
+            return h, cache, {}
+        return h, stack_caches(caches), {}
+
+    @classmethod
+    def init_cache(cls, cfg, batch: int, cache_len: int,
+                   dtype: torch.dtype, device: torch.device) -> Dict:
+        return {"ckv": torch.zeros(
+            (cfg.num_layers, batch, cache_len, attn.mla_cache_width(cfg)),
+            dtype=dtype, device=device)}
+
+    @classmethod
+    def cache_specs(cls, cfg):
+        return lead_specs(attn.mla_cache_specs(cfg))
+
+    @classmethod
+    def cache_axes(cls, cfg):
+        return RING_AXES
+
+
+# ===================================================================== #
 # zamba-style hybrid: groups of Mamba2 blocks + one shared attention block
 # ===================================================================== #
 class HybridStack:
@@ -477,7 +617,7 @@ def get_stack(cfg):
     if cfg.family in ("dense", "vlm", "audio"):
         return DenseStack
     if cfg.family == "moe":
-        return MoEStack
+        return LatentMoEStack if cfg.attention == "mla" else MoEStack
     if cfg.family == "hybrid":
         return HybridStack
     if cfg.family == "ssm":

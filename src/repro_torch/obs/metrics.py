@@ -109,6 +109,9 @@ def _labels_key(labels: dict) -> str:
 
 
 class Counter:
+    """A running count. ``inc`` also takes a 0-d tensor on the card: the
+    count then accumulates there, with no synchronise, and is read once,
+    by :meth:`read` or a snapshot."""
     __slots__ = ("value",)
 
     def __init__(self):
@@ -116,6 +119,10 @@ class Counter:
 
     def inc(self, n: int = 1) -> None:
         self.value += n
+
+    def read(self):
+        v = self.value
+        return v.item() if hasattr(v, "item") else v
 
 
 class Gauge:
@@ -223,7 +230,7 @@ class MetricsRegistry:
                 h.percentile(50), h.percentile(95), h.percentile(99))
             hists[key] = s
         return {
-            "counters": {k: c.value
+            "counters": {k: c.read()
                          for k, c in sorted(self._counters.items())},
             "gauges": {k: g.value
                        for k, g in sorted(self._gauges.items())},

@@ -185,7 +185,7 @@ def test_compile_lm_rejects_wrong_inputs(setup):
     with pytest.raises(TypeError, match="ModelConfig or TransformerParams"):
         compile_lm(MLPSpec((4, 2)), device="cpu")
     with pytest.raises(NotImplementedError, match="dense transformer"):
-        compile_lm(tcfg.replace(family="moe"), device="cpu")
+        compile_lm(tcfg.replace(family="ssm"), device="cpu")
 
 
 def test_compile_chip_points_model_configs_at_compile_lm(setup):
